@@ -1,12 +1,13 @@
-"""phdslam_tpu — TPU-native Rao-Blackwellized GM-PHD / CPHD SLAM engine.
+"""phdslam_tpu — Rao-Blackwellized GM-PHD / CPHD SLAM on the GPU.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
-cheesinglee/cuda-PHDSLAM (reference at /root/reference). Each particle carries
-a vehicle pose plus a Gaussian-mixture PHD map over landmarks; the whole SLAM
-step (pose prediction, per-particle measurement update with birth terms,
-particle weighting, mixture prune/merge, resampling) is one jit-compiled
-function over fixed-size padded mixtures, sharded over a TPU device mesh on
-the particle axis.
+cheesinglee/cuda-PHDSLAM. Each particle carries a vehicle pose plus a
+Gaussian-mixture PHD map over landmarks; the whole SLAM step (pose
+prediction, per-particle measurement update with birth terms, particle
+weighting, mixture prune/merge, resampling) is one jit-compiled function
+over fixed-size padded mixtures, with two Triton kernels (kernels/) for the
+measurement select and the greedy merge, and sharded over a 1-D device mesh
+on the particle axis when several cards are used.
 
 Not a port: the reference's dynamic-shape machinery (thrust stream compaction,
 host-side in/out-of-range splits, unbounded greedy merge) is replaced by
@@ -16,12 +17,11 @@ on-device under `jit`.
 
 import jax as _jax
 
-# The SLAM math is small-matrix (2x2/4x4) float32 algebra where bf16-lowered
-# dot_general (the TPU default for f32 matmuls) introduces ~2^-8 relative
-# error — enough to visibly perturb Kalman covariances and merge decisions
-# (measured 4.5e-3 absolute on Gaussian log-pdfs). These contractions are
-# tiny, so full-f32 precision costs nothing; genuinely hot large matmuls
-# (Pallas kernels) set their own preferred_element_type explicitly.
+# The SLAM math is small-matrix (2x2/4x4) float32 algebra. On the GPU a
+# float32 dot_general may run in TF32, which keeps about three decimal
+# digits (~2^-11 relative error) — enough to perturb Kalman covariances and
+# merge decisions. These contractions are tiny, so full float32 precision
+# costs nothing.
 _jax.config.update("jax_default_matmul_precision", "highest")
 
 from phdslam_tpu.config import SlamConfig, load_config

@@ -4,7 +4,7 @@ Generalizes the reference's one-shot boost serialization (the step-100
 ``state100.bin`` written at src/main.cpp:1262-1269 and replayed in profile
 mode, :1314-1321) into periodic, exact-resume checkpoints of the fixed-shape
 SlamState pytree: orbax when available, msgpack/npz fallback otherwise.
-Preemption-safe TPU runs come for free: every K steps the full filter state
+Preemption-safe runs come for free: every K steps the full filter state
 plus the PRNG key and step index land on disk.
 """
 

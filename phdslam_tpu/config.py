@@ -21,7 +21,7 @@ from dataclasses import dataclass
 # Filter type (reference src/slamtypes.h:22-23)
 PHD_TYPE = 0
 CPHD_TYPE = 1
-# TPU-rebuild extension: the working realization of the reference's
+# Rebuild extension: the working realization of the reference's
 # vestigial FastSLAM subsystem (src/fastslam.cu, src/munkres.cu — neither
 # compiles nor is in the build; see filter/fastslam.py)
 FASTSLAM_TYPE = 2
@@ -154,7 +154,7 @@ class SlamConfig:
     dataDirectory: str = "data/"
     nSteps: int = -1
 
-    # ---- TPU-rebuild-only knobs (no reference equivalent) ----
+    # ---- rebuild-only knobs (no reference equivalent) ----
     # Padded feature-slot count per particle map. The reference never
     # enforces max_features (src/main.cpp:1003 is parsed but unused in
     # phdfilter.cu); we bound maps at maxFeatures via weight-ranked
@@ -169,33 +169,18 @@ class SlamConfig:
                                 # dominant cost
     mergeMinWeight: float = 1e-3  # fast-mode prune threshold (>= the
                                   # reference's minFeatureWeight)
-    selectByIndex: bool = False  # Pallas selection emits (weight, index)
-                                 # and the caller gathers payload channels
-                                 # outside (2 VPU reductions per pick vs 8);
-                                 # numerically identical picks. Default OFF:
-                                 # the [P,M,k1] take_along_axis payload
-                                 # gathers lose to the in-kernel extraction
-                                 # at every measured shape (dense 8192x512
-                                 # fast step 258.9 vs 15.5 ms; 65k ackerman
-                                 # scan 8.5 s vs 0.106 s/step — the gather
-                                 # cost scales superlinearly in P and at 65k
-                                 # trips the worker watchdog)
-    usePallas: bool = True      # allow the fused Pallas TPU kernels; set
-                                # False when running on a CPU mesh (virtual
-                                # multi-device tests) while a TPU plugin is
-                                # the process default backend
-    pallasForce: bool = False   # use the compiled Pallas kernels even when
-                                # the process default backend is not a TPU —
-                                # set by parallel.mesh.resolve_pallas when
-                                # jitting/AOT-lowering for a TPU mesh from a
-                                # host whose default backend is CPU (e.g.
-                                # jax.export cross-platform lowering)
-    pallasInterpret: bool = False  # force the Pallas kernel code path in
-                                # interpret mode (pure-XLA emulation) on any
-                                # backend — exercises the kernel path on the
-                                # virtual CPU mesh (multi-chip dryrun/tests)
-                                # where compiled Mosaic cannot run. Slow;
-                                # testing only.
+    usePallas: bool = True      # run the hand-written kernels
+                                # (kernels/) where kernels.kernel_mode
+                                # allows: compiled on a GPU; on the CPU
+                                # the XLA path runs instead
+    pallasInterpret: bool = False  # run the kernel code path in Pallas
+                                # interpret mode on the CPU (tests and the
+                                # virtual-CPU-mesh dry run); slow, and an
+                                # error on a GPU
+    kernelPlatform: str = ""    # platform the kernels are compiled for;
+                                # "" = the process default backend.
+                                # parallel.mesh.resolve_pallas sets it
+                                # from a mesh's devices
     selectTopK: int = 0         # detection candidates kept per
                                 # measurement by the fused selection
                                 # (the per-(p,m) top-k1). 0 = auto:
@@ -203,14 +188,6 @@ class SlamConfig:
                                 # faster (the pick loop is ~40% of the
                                 # dense select kernel); accuracy evidence
                                 # for 2 vs 4 in RESULTS.md
-    dynamicMeasurementCount: bool = True  # pass the per-step valid-
-                                # measurement count to the fused kernels as
-                                # a traced SMEM scalar (bounds their inner
-                                # loop; the config-4 dense win). Not
-                                # vmappable — a batched SMEM scalar fails
-                                # Pallas TPU lowering — so the vmapped MC
-                                # path (eval/batch.py) turns it off and the
-                                # kernels loop over the static M instead.
     birthVelocityInit: bool = False  # informed 4-D births (two-detection
                                 # velocity initialization): seed a dynamic
                                 # birth's velocity mean from the nearest
@@ -219,7 +196,7 @@ class SlamConfig:
                                 # propagated variance 2*sigma_p^2/dt^2
                                 # (capped at the covVxBirth prior);
                                 # unmatched measurements keep the zero-mean
-                                # covVxBirth prior. TPU-rebuild extension —
+                                # covVxBirth prior. Rebuild extension —
                                 # the reference births at zero velocity
                                 # (src/phdfilter.cu:244-299).
     keepOobDynamic: bool = False  # pass out-of-FOV DYNAMIC features
@@ -369,7 +346,6 @@ _KEY_MAP = {
     "n_samples": "nSamples",
     "max_cardinality": "maxCardinality",
     "cn_poisson_predict": "cnPoissonPredict",
-    "dynamic_measurement_count": "dynamicMeasurementCount",
     "select_top_k": "selectTopK",
     "filter_type": "filterType",
     "map_estimate": "mapEstimate",
@@ -394,14 +370,13 @@ _KEY_MAP = {
     "save_all_maps": "saveAllMaps",
     "save_prediction": "savePrediction",
     "n_steps": "nSteps",
-    # TPU-rebuild extensions
+    # rebuild extensions
     "max_measurements": "maxMeasurements",
     "merge_candidates": "mergeCandidates",
     "merge_mode": "mergeMode",
     "merge_min_weight": "mergeMinWeight",
     "use_pallas": "usePallas",
     "pallas_interpret": "pallasInterpret",
-    "select_by_index": "selectByIndex",
     "birth_velocity_init": "birthVelocityInit",
     "keep_oob_dynamic": "keepOobDynamic",
     "birth_vel_max": "birthVelMax",
@@ -445,5 +420,15 @@ def parse_config_text(text: str) -> SlamConfig:
 
 
 def load_config(path: str) -> SlamConfig:
+    """Parse a cfg file. A relative data_directory resolves from the
+    checkout root, so a run starts from any working directory."""
+    import os
+
+    from phdslam_tpu.utils import REPO_ROOT
+
     with open(path, "r") as f:
-        return parse_config_text(f.read())
+        cfg = parse_config_text(f.read())
+    if not os.path.isabs(cfg.dataDirectory):
+        cfg = cfg.replace(
+            dataDirectory=os.path.join(REPO_ROOT, cfg.dataDirectory))
+    return cfg

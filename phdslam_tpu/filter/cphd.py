@@ -176,11 +176,11 @@ def esf_all(log_lambda):
     product trick). M is padded to a power of two with -inf entries (unit
     polynomials), which drop out exactly.
 
-    Measured on the v5e chip this is SLOWER than the scan forms at the
-    CPHD baseline shape (the down-sweep's take-based log-convolutions
-    materialize large intermediates), so psi_terms uses esf_log +
-    esf_deleted; this stays as a tested alternative for shapes where the
-    scan's sequential depth dominates (very large M, small P).
+    psi_terms uses the scan forms esf_log + esf_deleted: the down-sweep's
+    take-based log-convolutions materialize large intermediates. This
+    stays as a tested alternative for shapes where the scan's sequential
+    depth dominates (very large M, small P); its speed on the GPU is not
+    measured.
     """
     m = log_lambda.shape[-1]
     mp = 1
@@ -228,7 +228,7 @@ def psi_terms(sum_l, qdw, w, valid_mask, z_valid, cn_predict,
     sum_l [P,M]: log of the per-measurement detection mass
     logsumexp_f(log pd + log w + log N(z; S)) over in-range features —
     the only statistic of the [P,M,F] cross-product the Psi machinery
-    needs (so the fused TPU kernel's sum_exp feeds it directly);
+    needs (so the fused select kernel's sum_exp feeds it directly);
     qdw [P,F] log((1-pd_f) w) with the PER-FEATURE pd (0 outside the
     FOV); w [P,F] linear; cn_predict [P,N+1] log.
 
@@ -477,32 +477,19 @@ def cphd_update(pose, gm: Gaussian2DMixture, cn_predict, z_rb, z_label,
         cn_predict = cn_predict - jax.scipy.special.logsumexp(
             cn_predict, axis=-1, keepdims=True)
 
-    from phdslam_tpu.utils import pallas_opts
-    use_pallas, interp = pallas_opts(cfg)
+    from phdslam_tpu.kernels import kernel_mode
+    use_pallas, interp = kernel_mode(cfg)
     if use_pallas:
         # fused kernel (raw mode): per-measurement detection masses +
-        # unnormalized top-k1 detection candidates in one VMEM pass — the
+        # unnormalized top-k1 detection candidates in one pass — the
         # [P,M,F] cross-product is never materialized (psi_terms only
         # needs its per-measurement logsumexp)
-        nv = jnp.max(jnp.where(z_valid, jnp.arange(z_rb.shape[0]) + 1, 0)) \
-            if cfg.dynamicMeasurementCount else None
-        if cfg.selectByIndex:
-            from phdslam_tpu.filter.update import gather_selected
-            from phdslam_tpu.kernels.preupdate_pallas import (
-                fused_update_select_by_index)
-            sum_exp, e_sel, f_sel, _compat = fused_update_select_by_index(
-                z_rb, pre, gm, cfg, k1=k1, raw=True, n_valid=nv,
-                with_compat=False, interpret=interp)
-            (mx_sel, my_sel, u00_sel, u01_sel, u11_sel,
-             _lpw_sel) = gather_selected(pre, gm, z_rb, f_sel,
-                                         with_lpw=False)
-        else:
-            from phdslam_tpu.kernels.preupdate_pallas import (
-                fused_update_select)
-            (sum_exp, e_sel, mx_sel, my_sel, u00_sel, u01_sel, u11_sel,
-             _lpw_sel, _compat) = fused_update_select(
-                z_rb, pre, gm, cfg, k1=k1, raw=True, n_valid=nv,
-                with_compat=False, with_lpw=False, interpret=interp)
+        nv = jnp.max(jnp.where(z_valid, jnp.arange(z_rb.shape[0]) + 1, 0))
+        from phdslam_tpu.kernels.preupdate_pallas import fused_update_select
+        (sum_exp, e_sel, mx_sel, my_sel, u00_sel, u01_sel, u11_sel,
+         _lpw_sel, _compat) = fused_update_select(
+            z_rb, pre, gm, cfg, k1=k1, raw=True, n_valid=nv,
+            with_compat=False, with_lpw=False, interpret=interp)
         if cfg.labeledMeasurements:
             m_ok = z_valid & (z_label == 0)
         else:
@@ -570,8 +557,7 @@ def cphd_update(pose, gm: Gaussian2DMixture, cn_predict, z_rb, z_label,
     mw, mmx, mmy, m00, m01, m11 = greedy_merge_channels(
         cand_w, cand_mx, cand_my, cand_00, cand_01, cand_11,
         cfg.minSeparation, F, metric=cfg.distanceMetric,
-        use_pallas=cfg.usePallas, interpret=cfg.pallasInterpret,
-        force=cfg.pallasForce)
+        use_kernel=use_pallas, interpret=interp)
     map_out = Gaussian2DMixture(w=mw, mx=mmx, my=mmy, c00=m00, c01=m01,
                                 c11=m11)
 

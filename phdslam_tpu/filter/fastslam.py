@@ -17,14 +17,15 @@ src/fastslam.cu:447). What the skeleton INTENDED is recoverable:
   - update (src/fastslam.cu:417-447): per-particle EKF map update +
     particle importance weighting.
 
-This module rebuilds that intent TPU-first instead of translating it:
+This module rebuilds that intent for a data-parallel device instead of
+translating it:
 
   - the EKF pre-update is the SAME channelized [P, F] Kalman math the PHD
     update uses (filter/update.kalman_preupdate — one implementation, two
     filters), and the association log-likelihood matrix is a [P, M, F]
-    tensor of VPU elementwise work, exactly like the PHD detection terms.
+    tensor of elementwise work, exactly like the PHD detection terms.
   - joint assignment runs as a Jacobi (all-rows-bid-in-parallel) forward
-    auction with eps-scaling — the same TPU-friendly formulation as
+    auction with eps-scaling — the same data-parallel formulation as
     ops/ospa._auction_assign, extended to the rectangular
     measurements x (features + no-match) problem. Every measurement owns a
     private "no match" column priced at the clutter/new-landmark

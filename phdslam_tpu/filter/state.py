@@ -20,10 +20,10 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from phdslam_tpu.utils import pytree_dataclass
 
 
-@struct.dataclass
+@pytree_dataclass
 class GaussianMixture:
     """Padded Gaussian mixture (array-of-structs): weights 0 = empty slots.
 
@@ -71,16 +71,14 @@ class GaussianMixture:
         )
 
 
-@struct.dataclass
+@pytree_dataclass
 class Gaussian2DMixture:
     """Channelized (structure-of-arrays) padded 2-D Gaussian mixture.
 
     Every field is a [..., F] scalar array: weight, mean (mx, my), and the
-    symmetric covariance (c00, c01, c11). On TPU, array-of-structs layouts
-    like [P, F, 2, 2] put the tiny matrix dims into the tiled minor
-    positions and pad 64x in HBM (measured: a 64 MB covariance array
-    occupying 4 GB); scalar channels tile perfectly and keep every
-    elementwise Kalman/merge expression in clean [8,128]-shaped VPU work.
+    symmetric covariance (c00, c01, c11). Array-of-structs layouts like
+    [P, F, 2, 2] put the tiny matrix dims innermost; scalar channels keep
+    every elementwise Kalman/merge expression a contiguous [P, F] pass.
     This mirrors how the reference's Maple-expanded scalar kernels treat
     the 2x2 blocks (src/phdfilter.cu:332-364).
     """
@@ -133,7 +131,7 @@ class Gaussian2DMixture:
                    c11=jnp.asarray(cov[..., 1, 1]))
 
 
-@struct.dataclass
+@pytree_dataclass
 class Gaussian4DMixture:
     """Channelized padded 4-D Gaussian mixture (dynamic features,
     [x, y, vx, vy]).
@@ -141,8 +139,8 @@ class Gaussian4DMixture:
     w [..., F]; mean_channels [..., 4, F]; cov_channels [..., 10, F] with
     the symmetric 4x4 packed in row-major upper-triangle order (see
     update4.S4). The channel axis sits at -2 so the particle axis stays the
-    leading axis (uniform tree ops) while the big F axis stays TPU-tile
-    minor; the small channel dim pads at most 2x.
+    leading axis (uniform tree ops) while the big F axis stays
+    innermost.
     """
 
     w: jax.Array
@@ -207,7 +205,7 @@ class Gaussian4DMixture:
                    cov_channels=jnp.stack(ch, axis=-2))
 
 
-@struct.dataclass
+@pytree_dataclass
 class SlamState:
     """Full Rao-Blackwellized particle filter state (one pytree).
 
@@ -261,7 +259,7 @@ class SlamState:
         )
 
 
-@struct.dataclass
+@pytree_dataclass
 class Measurements:
     """Fixed-size padded measurement batch for one time step.
 

@@ -1,6 +1,6 @@
 """GM-PHD measurement update, fully on-device with fixed shapes.
 
-The TPU-native re-design of the reference's update path
+The static-shape re-design of the reference's update path
 (src/phdfilter.cu:3336-3761):
 
   reference (dynamic shapes, host staging)      this module (static shapes)
@@ -19,9 +19,9 @@ The TPU-native re-design of the reference's update path
 
 Layout: everything is channel-separated scalars ([P,F] / [P,K] arrays per
 Gaussian field) — the structure-of-arrays form of the reference's
-Maple-expanded 2x2 expressions (src/phdfilter.cu:332-364). On TPU this is
-load-bearing: array-of-structs [P,F,2,2] tensors put the tiny matrix dims
-into the tiled minor positions and pad 64x in HBM.
+Maple-expanded 2x2 expressions (src/phdfilter.cu:332-364): every
+elementwise pass reads contiguous [P,F] rows, and no array carries tiny
+[2,2] minor dimensions.
 
 Key structural observations exploited:
  - Kalman gain / updated covariance / innovation covariance depend only on
@@ -42,9 +42,9 @@ import jax.numpy as jnp
 from phdslam_tpu.config import SlamConfig, STATIC_MEASUREMENT
 from phdslam_tpu.filter.state import Gaussian2DMixture
 from phdslam_tpu.models.measurement import predict_measurement, range_class
+from phdslam_tpu.kernels import kernel_mode
 from phdslam_tpu.ops.gm import greedy_merge_channels
 from phdslam_tpu.ops.linalg import safe_log, wrap_angle
-from phdslam_tpu.utils import pallas_opts
 
 LOG_2PI = 1.8378770664093453
 
@@ -165,7 +165,7 @@ def detection_log_weights(pre: PreUpdate, gm: Gaussian2DMixture, z_rb,
 
     Innovations are recomputed on demand (cheap: z - h(x)) instead of being
     materialized as a [P,M,F,2] tensor — at the dense-stress config that
-    tensor alone is >2 GB of HBM.
+    tensor alone is >2 GB of device memory.
     """
     innov_r = z_rb[None, :, None, 0] - pre.r[:, None, :]
     innov_b = wrap_angle(z_rb[None, :, None, 1] - pre.bearing[:, None, :])
@@ -237,12 +237,12 @@ def phd_update_static(pose, gm: Gaussian2DMixture, z_rb, z_label, z_valid,
 
     pose [P,6]; gm: [P,F] channelized 2-D mixture; z_rb [M,2]; z_valid [M].
 
-    Two equivalent backends:
-      - Pallas (TPU): the fused kernel streams the [P,F] channels once and
+    Two equivalent backends (kernels.kernel_mode chooses):
+      - kernel (GPU): the fused select reads the [P,F] channels once and
         emits normalizer numerators + the per-measurement top-k1 detection
         candidates with channels (kernels/preupdate_pallas.py)
-      - XLA (CPU/tests): materializes the [P,M,F] log-likelihoods and
-        selects with top_k + gathers
+      - XLA: materializes the [P,M,F] log-likelihoods and selects with
+        top_k + gathers
     """
     P, F = gm.w.shape
     M = z_rb.shape[0]
@@ -256,27 +256,14 @@ def phd_update_static(pose, gm: Gaussian2DMixture, z_rb, z_label, z_valid,
 
     pre = kalman_preupdate(pose, gm, cfg)
 
-    use_pallas, interp = pallas_opts(cfg)
+    use_pallas, interp = kernel_mode(cfg)
     if use_pallas:
-        nv = jnp.max(jnp.where(z_valid, jnp.arange(M) + 1, 0)) \
-            if cfg.dynamicMeasurementCount else None
-        if cfg.selectByIndex:
-            from phdslam_tpu.kernels.preupdate_pallas import (
-                fused_update_select_by_index)
-            sum_exp, w_sel, f_sel, compatible = \
-                fused_update_select_by_index(z_rb, pre, gm, cfg, k1=k1,
-                                             n_valid=nv, interpret=interp)
-            (mx_sel, my_sel, u00_sel, u01_sel, u11_sel,
-             lpw_sel) = gather_selected(
-                pre, gm, z_rb, f_sel,
-                with_lpw=cfg.particleWeighting == 2)
-        else:
-            from phdslam_tpu.kernels.preupdate_pallas import (
-                fused_update_select)
-            (sum_exp, w_sel, mx_sel, my_sel, u00_sel, u01_sel, u11_sel,
-             lpw_sel, compatible) = fused_update_select(z_rb, pre, gm, cfg,
-                                                        k1=k1, n_valid=nv,
-                                                        interpret=interp)
+        nv = jnp.max(jnp.where(z_valid, jnp.arange(M) + 1, 0))
+        from phdslam_tpu.kernels.preupdate_pallas import fused_update_select
+        (sum_exp, w_sel, mx_sel, my_sel, u00_sel, u01_sel, u11_sel,
+         lpw_sel, compatible) = fused_update_select(z_rb, pre, gm, cfg,
+                                                    k1=k1, n_valid=nv,
+                                                    interpret=interp)
         # per-measurement validity/label gating (column masks)
         if cfg.labeledMeasurements:
             m_ok = z_valid & (z_label == STATIC_MEASUREMENT)
@@ -347,9 +334,8 @@ def phd_update_static(pose, gm: Gaussian2DMixture, z_rb, z_label, z_valid,
     w_birth_p = jnp.where(w_birth >= minw, w_birth, 0.0)
 
     # --- merge candidate pool -------------------------------------------
-    # Three mutually exclusive, gather-free sections (no global top-k: TPU
-    # sorts and row-gathers at [P, M*F] scale measured 0.8-2 s at the dense
-    # stress config; the sectioned layout removes them entirely):
+    # Three mutually exclusive, gather-free sections (no global top-k or
+    # row gathers at [P, M*F] scale):
     #   [0, F)           originals: non-detection terms for in-range
     #                    features, untouched weights for near/out-of-range
     #                    ones (the reference's out1 features bypass the
@@ -405,7 +391,7 @@ def phd_update_static(pose, gm: Gaussian2DMixture, z_rb, z_label, z_valid,
     mw, mmx, mmy, m00, m01, m11 = greedy_merge_channels(
         cand_w, cand_mx, cand_my, cand_00, cand_01, cand_11,
         cfg.minSeparation, F, metric=cfg.distanceMetric,
-        use_pallas=cfg.usePallas, interpret=interp, force=cfg.pallasForce)
+        use_kernel=use_pallas, interpret=interp)
     map_out = Gaussian2DMixture(w=mw, mx=mmx, my=mmy, c00=m00, c01=m01,
                                 c11=m11)
 

@@ -1,48 +1,23 @@
-"""Greedy Gaussian-mixture merge kernel (Pallas, TPU).
+"""Exact greedy Gaussian-mixture merge (Pallas, Triton route).
 
-VMEM-resident version of ops/gm.py:greedy_merge_channels (metric 0,
-Mahalanobis with averaged covariance — the reference's default
-distance, device_math.cuh:computeMahalDist). The XLA while_loop version
-re-reads/rewrites the [P, K] channel arrays from HBM every pick round
-(measured ~860 ms at the dense-stress pool of [8192, 1088] -> 512); here a
-[tile_p, K] block of all six channels stays in VMEM for the whole merge and
-HBM sees exactly one read of the candidates and one write of the result.
+On-chip version of ops/gm.py:greedy_merge_channels (metric 0, Mahalanobis
+with averaged covariance — the reference's default distance,
+device_math.cuh:computeMahalDist — or metric 1, Hellinger). The design is
+the reference's phdUpdateMergeKernel<<<P, 256>>>: one program per
+particle holds the particle's whole candidate pool in registers, and a
+while loop makes one greedy pick per iteration:
 
-Each grid step merges tile_p particles independently; inside, a bounded
-while loop performs one greedy pick per iteration:
-
-  pick   = row argmax of the remaining weights (iota/one-hot, no gathers)
-  sel    = candidates with Mahalanobis(pick, j) < min_separation
-  output = moment-matched merge of sel (same arithmetic as the XLA path)
+  pick   = row argmax of the remaining weights (first index on ties)
+  sel    = candidates within min_separation of the pick
+  output = moment-matched merge of sel
   w_rem  = weights of sel zeroed
 
-Output layout is [cap, tile_p] per channel (the written slot indexes the
-major axis — Mosaic forbids dynamic minor-dim stores); the caller
-transposes. Exact parity with the XLA path is tested in interpret mode
-(tests/test_pallas.py) and on-chip (scripts/tpu_kernel_check.py).
-
-Performance ledger (dense pool [8192, 1088] -> 512, v5e, round 5): the
-loop costs ~3.3 us per greedy pick per 128-particle tile and every
-micro-architectural lever was measured and falsified before settling on
-the shipped default:
-
-  [tp, K] layout tp=128 (r3 shipped)   27.2 ms
-  [K, tp] transposed layout (SHIPPED)  25.5 ms   (sublane reductions)
-  tile_p=256/512 (either layout)       +1-8%     (per-pick cost scales
-                                                  with tp even when VMEM
-                                                  fits; no trip win)
-  block 8/32/64/128                    +-2%
-  sort_rows trip equalization          ~neutral  (6-channel gather cost
-                                                  eats the ~12% trip win)
-  exact nonzero compaction to K=512    ~10x WORSE (XLA argsort+gather of
-                                                  6x[8192,1088] ~250 ms)
-  channel-packed one_pick ([2K]/[3K])  +16%      (fewer, bigger ops lost
-                                                  to concat/repeat cost)
-
-Net: cost ~ clusters x P/128 x 3.3 us, insensitive to K/width/packing —
-the greedy pick's serial dependency chain is the floor. Trip count (the
-scene's cluster count) is the only remaining lever; the fast path
-(mergeMode=1) uses it by pruning sub-threshold candidates.
+Device memory sees one read of the candidates and one write of the
+result. The XLA while_loop form re-reads all six [P, K] channels from
+device memory on every pick. Picks run serially within a particle and
+particles run in parallel across the SMs. Exact sequential-greedy
+semantics; parity with the XLA path is tested in interpret mode
+(tests/test_pallas.py) and on the card (chip_smoke.py).
 """
 
 from __future__ import annotations
@@ -52,673 +27,135 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
+from phdslam_tpu.kernels.preupdate_pallas import next_pow2
 
-
-
-def _pad_rows(arrs, tile_p):
-    """Pad the leading (particle) axis of each [P, ...] array to a multiple
-    of tile_p with zeros. Zero-weight rows merge trivially (the in-kernel
-    while loop never activates them), so padding is semantically free."""
-    P = arrs[0].shape[0]
-    pad = (-P) % tile_p
-    if pad == 0:
-        return arrs, P
-    return [jnp.pad(a, ((0, pad),) + ((0, 0),) * (a.ndim - 1))
-            for a in arrs], P
+# One particle per program; warps per program chosen by measurement on
+# the dense pool [8192, 1088] -> 512 (PERF.md).
+NUM_WARPS = 4
 
 
 def _kernel(w_ref, mx_ref, my_ref, c00_ref, c01_ref, c11_ref,
             ow_ref, omx_ref, omy_ref, o00_ref, o01_ref, o11_ref,
-            wrem_ref,
-            *, cap: int, min_separation: float, metric: int,
-            block: int):
-    tp, K = w_ref.shape
-    mx = mx_ref[:, :]
-    my = my_ref[:, :]
-    c00 = c00_ref[:, :]
-    c01 = c01_ref[:, :]
-    c11 = c11_ref[:, :]
-    iota = jax.lax.broadcasted_iota(jnp.int32, (tp, K), 1)
+            *, cap: int, min_separation: float, metric: int):
+    w0 = w_ref[...]
+    mx = mx_ref[...]
+    my = my_ref[...]
+    c00 = c00_ref[...]
+    c01 = c01_ref[...]
+    c11 = c11_ref[...]
+    bp, kp = w0.shape
+    rows = jax.lax.broadcasted_iota(jnp.int32, (bp,), 0)
+    cols = jax.lax.broadcasted_iota(jnp.int32, (bp, kp), 1)
+    out_refs = (ow_ref, omx_ref, omy_ref, o00_ref, o01_ref, o11_ref)
 
-    # pre-fill: weight-0 empty slots with identity covariance (safe dets
-    # downstream), matching the XLA path's init
-    zeros_out = jnp.zeros((cap, tp), w_ref.dtype)
-    ones_out = jnp.ones((cap, tp), w_ref.dtype)
-    ow_ref[:, :] = zeros_out
-    omx_ref[:, :] = zeros_out
-    omy_ref[:, :] = zeros_out
-    o00_ref[:, :] = ones_out
-    o01_ref[:, :] = zeros_out
-    o11_ref[:, :] = ones_out
-
-    def one_pick(w_rem, mval):
-        """One greedy pick + moment-matched merge; returns the remaining
-        weights, its NEXT max (so the loop cond and the next pick reuse
-        one reduction), and this pick's output channel values ([tp] each).
-        Rows whose weights are exhausted produce zeros (the pre-fill).
-        The remaining weights live in the wrem_ref VMEM scratch between
-        while iterations — carrying the [tp, K] array by value made
-        Mosaic copy ~0.5 MB per trip, which dominated the loop at
-        cap-bound trip counts."""
-        hit = w_rem == mval[:, None]
-        first = jnp.min(jnp.where(hit, iota, K), axis=1)
-        onehot = iota == first[:, None]
-        pick = lambda c: jnp.sum(jnp.where(onehot, c, 0.0), axis=1)
-        rmx = pick(mx)[:, None]
-        rmy = pick(my)[:, None]
-        r00 = pick(c00)[:, None]
-        r01 = pick(c01)[:, None]
-        r11 = pick(c11)[:, None]
+    def body(carry):
+        i, w_rem, mval = carry
+        pick = jnp.argmax(w_rem, axis=1).astype(jnp.int32)   # [bp]
+        take = lambda ref: ref[rows, pick]
+        pmx, pmy = take(mx_ref), take(my_ref)                 # [bp]
+        rmx, rmy = pmx[:, None], pmy[:, None]
+        r00, r01, r11 = (take(c00_ref)[:, None], take(c01_ref)[:, None],
+                         take(c11_ref)[:, None])
         dx = rmx - mx
         dy = rmy - my
         dx2 = dx * dx
         dxy = dx * dy
         dy2 = dy * dy
         if metric == 1:
-            # Hellinger (device_math.cuh:388-413) — same arithmetic as the
-            # XLA path in ops/gm.py
+            # Hellinger (device_math.cuh:388-413), the XLA path's
+            # arithmetic in ops/gm.py
             s00, s01, s11 = r00 + c00, r01 + c01, r11 + c11
             det_sum = s00 * s11 - s01 * s01
             safe = jnp.maximum(det_sum, 1.17549435e-38)
-            eps_q = -0.25 * (dx * dx * s11 - 2.0 * dx * dy * s01
-                             + dy * dy * s00) / safe
+            eps_q = -0.25 * (dx2 * s11 - 2.0 * dxy * s01
+                             + dy2 * s00) / safe
             det_prod = ((r00 * c00 + r01 * c01) * (r01 * c01 + r11 * c11)
                         - (r00 * c01 + r01 * c11)
                         * (r01 * c00 + r11 * c01))
             dist = 1.0 - jnp.sqrt(
                 jnp.maximum(jnp.sqrt(jnp.maximum(det_prod, 0.0))
                             / (det_sum / 4.0), 0.0)) * jnp.exp(eps_q)
-            near = dist < min_separation
         else:
             a00 = 0.5 * (r00 + c00)
             a01 = 0.5 * (r01 + c01)
             a11 = 0.5 * (r11 + c11)
             det = a00 * a11 - a01 * a01
-            # division-free threshold: quad/det < sep with det > 0 (PSD
-            # average) is exactly quad < sep * det — drops a [tp, K]
-            # divide per pick
-            quad = (dx2 * a11 - 2.0 * dxy * a01 + dy2 * a00)
-            near = quad < min_separation * det
-        sel = (near & (w_rem > 0.0)) | onehot
+            dist = (dx2 * a11 - 2.0 * dxy * a01 + dy2 * a00) / det
+        sel = ((dist < min_separation) & (w_rem > 0.0)) \
+            | (cols == pick[:, None])
         sel = sel & (mval > 0.0)[:, None]
         sw = jnp.where(sel, w_rem, 0.0)
-        wsum = jnp.sum(sw, axis=1)                           # [tp]
+        wsum = jnp.sum(sw, axis=1)                             # [bp]
         inv = jnp.where(wsum > 0.0, 1.0 / jnp.maximum(wsum, 1e-38), 0.0)
-        # one-pass moments centered on the picked mean: cluster members
-        # sit within sqrt(min_separation) Mahalanobis of the pick, so
-        # |dx| is O(1) and E[x^2]-E[x]^2 in centered coordinates loses no
-        # precision — and the second (ddx/ddy) sweep over [tp, K]
-        # disappears (the merge is trip-count bound; see the slab-store
-        # note below)
-        mcx = jnp.sum(sw * dx, axis=1) * inv                 # [tp]
+        # one-pass moments centred on the picked mean: cluster members
+        # sit within the separation gate of the pick, so E[x^2]-E[x]^2 in
+        # centred coordinates loses no precision, and all six sums are
+        # independent reductions
+        mcx = jnp.sum(sw * dx, axis=1) * inv
         mcy = jnp.sum(sw * dy, axis=1) * inv
         n00 = jnp.sum(sw * (c00 + dx2), axis=1) * inv - mcx * mcx
         n01 = jnp.sum(sw * (c01 + dxy), axis=1) * inv - mcx * mcy
         n11 = jnp.sum(sw * (c11 + dy2), axis=1) * inv - mcy * mcy
-        # de-center; exhausted rows (wsum = 0) emit the zero/identity
-        # pre-fill values, like the XLA path
-        mux = jnp.where(wsum > 0.0, rmx[:, 0] - mcx, 0.0)
-        muy = jnp.where(wsum > 0.0, rmy[:, 0] - mcy, 0.0)
+        live = wsum > 0.0
+        # exhausted rows emit the empty slot: weight 0, identity cov
+        vals = (wsum, jnp.where(live, pmx - mcx, 0.0),
+                jnp.where(live, pmy - mcy, 0.0),
+                jnp.where(live, n00, 1.0), n01, jnp.where(live, n11, 1.0))
+        for ref, v in zip(out_refs, vals):
+            ref[:, i] = v
         w_next = jnp.where(sel, 0.0, w_rem)
-        vals = (wsum, mux, muy,
-                jnp.where(wsum > 0.0, n00, 1.0), n01,
-                jnp.where(wsum > 0.0, n11, 1.0))
-        return w_next, jnp.max(w_next, axis=1), vals
-
-    # `block` greedy picks per while iteration, stored as ONE tile-aligned
-    # [block, tp] slab per channel. Two wins over one dynamic row-store per
-    # pick: (a) the loop-carried cond overhead is paid block x less often,
-    # (b) a dynamic store at a single major-axis row is sublane-unaligned
-    # and lowers to a masked whole-buffer update whose cost SCALES WITH
-    # cap (measured: cap=512 ran 2.7x slower than cap=128 at identical
-    # trip counts); slab stores at block-aligned offsets are plain copies.
-    # Sequential-greedy semantics are unchanged: each pick sees the
-    # previous picks' zeroed weights. Callers pick block | cap.
-    def body(carry):
-        i, mval = carry
-        w_rem = wrem_ref[:, :]
-        outs = []
-        for _b in range(block):
-            w_rem, mval, vals = one_pick(w_rem, mval)
-            outs.append(vals)
-        wrem_ref[:, :] = w_rem
-        slabs = [jnp.stack([o[k] for o in outs], axis=0)
-                 for k in range(6)]                          # [block, tp]
-        # i is a while-carry that only ever holds multiples of `block`;
-        # Mosaic can't see that through the loop, so assert it (without
-        # the hint the sublane-alignment check rejects tile_p > 128)
-        ia = pl.multiple_of(i, block)
-        ow_ref[pl.ds(ia, block), :] = slabs[0]
-        omx_ref[pl.ds(ia, block), :] = slabs[1]
-        omy_ref[pl.ds(ia, block), :] = slabs[2]
-        o00_ref[pl.ds(ia, block), :] = slabs[3]
-        o01_ref[pl.ds(ia, block), :] = slabs[4]
-        o11_ref[pl.ds(ia, block), :] = slabs[5]
-        return i + block, mval
+        return i + 1, w_next, jnp.max(w_next, axis=1)
 
     def cond(carry):
-        # the carried max doubles as the emptiness test — no extra
-        # any(w_rem > 0) reduction per iteration
-        i, mval = carry
+        i, _, mval = carry
         return (i < cap) & (jnp.max(mval) > 0.0)
 
-    w0 = w_ref[:, :]
-    wrem_ref[:, :] = w0
-    jax.lax.while_loop(cond, body, (jnp.int32(0), jnp.max(w0, axis=1)))
+    n, _, _ = jax.lax.while_loop(
+        cond, body, (jnp.int32(0), w0, jnp.max(w0, axis=1)))
 
+    empty = (0.0, 0.0, 0.0, 1.0, 0.0, 1.0)
 
-def _kernel_kt(w_ref, mx_ref, my_ref, c00_ref, c01_ref, c11_ref,
-               ow_ref, omx_ref, omy_ref, o00_ref, o01_ref, o11_ref,
-               wrem_ref,
-               *, cap: int, min_separation: float, metric: int,
-               block: int):
-    """Transposed-layout twin of ``_kernel``: channel blocks are [K, tp]
-    (candidates on the SUBLANE axis, particles on the LANE axis), so every
-    per-pick reduction runs along sublanes — strided vreg adds at VPU
-    throughput — instead of along lanes. Measured on the dense pool
-    ([8192, 1088] -> 512): the [tp, K] layout's per-pick cost is
-    ~3.3 us x (tp/128) and *independent of K*, i.e. the lane-axis
-    reductions pay a fixed per-sublane latency that dwarfs the arithmetic;
-    this layout makes the same picks throughput-bound. Same arithmetic,
-    same outputs (reduction order differs -> float32 ulp-level drift)."""
-    K, tp = w_ref.shape
-    mx = mx_ref[:, :]
-    my = my_ref[:, :]
-    c00 = c00_ref[:, :]
-    c01 = c01_ref[:, :]
-    c11 = c11_ref[:, :]
-    iota = jax.lax.broadcasted_iota(jnp.int32, (K, tp), 0)
+    def fill(i, carry):
+        for ref, v in zip(out_refs, empty):
+            ref[:, i] = jnp.full((bp,), v, w0.dtype)
+        return carry
 
-    zeros_out = jnp.zeros((cap, tp), w_ref.dtype)
-    ones_out = jnp.ones((cap, tp), w_ref.dtype)
-    ow_ref[:, :] = zeros_out
-    omx_ref[:, :] = zeros_out
-    omy_ref[:, :] = zeros_out
-    o00_ref[:, :] = ones_out
-    o01_ref[:, :] = zeros_out
-    o11_ref[:, :] = ones_out
-
-    def one_pick(w_rem, mval):
-        # mval: [1, tp] running max of w_rem (see _kernel.one_pick)
-        hit = w_rem == mval
-        first = jnp.min(jnp.where(hit, iota, K), axis=0, keepdims=True)
-        onehot = iota == first
-        pick = lambda c: jnp.sum(jnp.where(onehot, c, 0.0), axis=0,
-                                 keepdims=True)               # [1, tp]
-        rmx = pick(mx)
-        rmy = pick(my)
-        r00 = pick(c00)
-        r01 = pick(c01)
-        r11 = pick(c11)
-        dx = rmx - mx
-        dy = rmy - my
-        dx2 = dx * dx
-        dxy = dx * dy
-        dy2 = dy * dy
-        if metric == 1:
-            s00, s01, s11 = r00 + c00, r01 + c01, r11 + c11
-            det_sum = s00 * s11 - s01 * s01
-            safe = jnp.maximum(det_sum, 1.17549435e-38)
-            eps_q = -0.25 * (dx * dx * s11 - 2.0 * dx * dy * s01
-                             + dy * dy * s00) / safe
-            det_prod = ((r00 * c00 + r01 * c01) * (r01 * c01 + r11 * c11)
-                        - (r00 * c01 + r01 * c11)
-                        * (r01 * c00 + r11 * c01))
-            dist = 1.0 - jnp.sqrt(
-                jnp.maximum(jnp.sqrt(jnp.maximum(det_prod, 0.0))
-                            / (det_sum / 4.0), 0.0)) * jnp.exp(eps_q)
-            near = dist < min_separation
-        else:
-            a00 = 0.5 * (r00 + c00)
-            a01 = 0.5 * (r01 + c01)
-            a11 = 0.5 * (r11 + c11)
-            det = a00 * a11 - a01 * a01
-            quad = (dx2 * a11 - 2.0 * dxy * a01 + dy2 * a00)
-            near = quad < min_separation * det
-        sel = (near & (w_rem > 0.0)) | onehot
-        sel = sel & (mval > 0.0)
-        sw = jnp.where(sel, w_rem, 0.0)
-        wsum = jnp.sum(sw, axis=0)                            # [tp]
-        inv = jnp.where(wsum > 0.0, 1.0 / jnp.maximum(wsum, 1e-38), 0.0)
-        mcx = jnp.sum(sw * dx, axis=0) * inv
-        mcy = jnp.sum(sw * dy, axis=0) * inv
-        n00 = jnp.sum(sw * (c00 + dx2), axis=0) * inv - mcx * mcx
-        n01 = jnp.sum(sw * (c01 + dxy), axis=0) * inv - mcx * mcy
-        n11 = jnp.sum(sw * (c11 + dy2), axis=0) * inv - mcy * mcy
-        mux = jnp.where(wsum > 0.0, rmx[0, :] - mcx, 0.0)
-        muy = jnp.where(wsum > 0.0, rmy[0, :] - mcy, 0.0)
-        w_next = jnp.where(sel, 0.0, w_rem)
-        vals = (wsum, mux, muy,
-                jnp.where(wsum > 0.0, n00, 1.0), n01,
-                jnp.where(wsum > 0.0, n11, 1.0))
-        return w_next, jnp.max(w_next, axis=0, keepdims=True), vals
-
-    def body(carry):
-        i, mval = carry
-        w_rem = wrem_ref[:, :]
-        outs = []
-        for _b in range(block):
-            w_rem, mval, vals = one_pick(w_rem, mval)
-            outs.append(vals)
-        wrem_ref[:, :] = w_rem
-        slabs = [jnp.stack([o[k] for o in outs], axis=0)
-                 for k in range(6)]                          # [block, tp]
-        ia = pl.multiple_of(i, block)    # see _kernel: while-carry hint
-        ow_ref[pl.ds(ia, block), :] = slabs[0]
-        omx_ref[pl.ds(ia, block), :] = slabs[1]
-        omy_ref[pl.ds(ia, block), :] = slabs[2]
-        o00_ref[pl.ds(ia, block), :] = slabs[3]
-        o01_ref[pl.ds(ia, block), :] = slabs[4]
-        o11_ref[pl.ds(ia, block), :] = slabs[5]
-        return i + block, mval
-
-    def cond(carry):
-        i, mval = carry
-        return (i < cap) & (jnp.max(mval) > 0.0)
-
-    w0 = w_ref[:, :]
-    wrem_ref[:, :] = w0
-    jax.lax.while_loop(cond, body,
-                       (jnp.int32(0), jnp.max(w0, axis=0, keepdims=True)))
+    jax.lax.fori_loop(n, cap, fill, 0)
 
 
 @functools.partial(jax.jit,
-                   static_argnames=("min_separation", "max_out", "tile_p",
-                                    "interpret", "metric", "block",
-                                    "sort_rows", "layout", "compact_k"))
+                   static_argnames=("min_separation", "max_out",
+                                    "interpret", "metric"))
 def greedy_merge_pallas(w, mx, my, c00, c01, c11, min_separation,
-                        max_out: int, tile_p: int = 128,
-                        interpret: bool = False, metric: int = 0,
-                        block: int = 0, sort_rows: bool = False,
-                        layout: str = "kp", compact_k: int = 0):
+                        max_out: int, interpret: bool = False,
+                        metric: int = 0):
     """Drop-in for ops.gm.greedy_merge_channels (metric 0 or 1).
 
     w..c11: [P, K] candidate channels; returns six [P, max_out] channels.
-    Requires P % tile_p == 0 (callers gate on this plus the TPU backend).
-
-    sort_rows: order particles by candidate count before tiling (and
-    invert the permutation on the outputs). Each grid tile runs until its
-    SLOWEST particle finishes, so mixing a 400-cluster particle into a
-    tile of 150-cluster ones makes all 128 pay 400 trips; grouping
-    similar workloads cuts total trips toward sum-of-tile-means. Exact:
-    rows are independent, so any row order yields identical per-row
-    results (asserted in tests/test_pallas.py). Measured ~neutral at the
-    dense pool (27.9 vs 28.2 ms: the 6-channel gather/scatter eats the
-    ~12% trip saving), so off by default.
-
-    layout: "kp" (default) runs the transposed kernel — candidates on
-    sublanes, particles on lanes — whose per-pick reductions are
-    throughput-bound (see _kernel_kt); "pk" keeps the original
-    [tile_p, K] kernel (kept for A/B measurement).
-
-    compact_k: stable-partition each row's NONZERO-weight candidates to
-    the front and hand the kernel only the first compact_k columns.
-    Exact whenever every row has <= compact_k nonzero candidates
-    (zero-weight entries can never join or seed a cluster, and the
-    stable order preserves first-index tie-breaking); rows that overflow
-    fall back to the full-K kernel via lax.cond, so the result is exact
-    unconditionally. The win is VMEM: at the dense pool (K=1088, <=454
-    nonzero/row) compacting to 512 lets tile_p=256 fit on-chip, halving
-    the grid's total pick count."""
-    if compact_k and 0 < compact_k < w.shape[1]:
-        args6 = (w, mx, my, c00, c01, c11)
-        fits = jnp.max(jnp.sum((w > 0.0).astype(jnp.int32), axis=1)) \
-            <= compact_k
-        kw = dict(tile_p=tile_p, interpret=interpret, metric=metric,
-                  block=block, sort_rows=sort_rows, layout=layout)
-
-        def compacted(a6):
-            order = jnp.argsort((a6[0] <= 0.0).astype(jnp.int32), axis=1,
-                                stable=True)[:, :compact_k]
-            g = lambda x: jnp.take_along_axis(x, order, axis=1)
-            return greedy_merge_pallas(*(g(x) for x in a6),
-                                       min_separation, max_out, **kw)
-
-        def full(a6):
-            return greedy_merge_pallas(*a6, min_separation, max_out, **kw)
-
-        return jax.lax.cond(fits, compacted, full, args6)
-    if sort_rows:
-        order = jnp.argsort(jnp.sum((w > 0.0).astype(jnp.int32), axis=1))
-        inv = jnp.argsort(order)
-        outs = greedy_merge_pallas(
-            w[order], mx[order], my[order], c00[order], c01[order],
-            c11[order], min_separation, max_out, tile_p=tile_p,
-            interpret=interpret, metric=metric, block=block,
-            sort_rows=False, layout=layout)
-        return tuple(o[inv] for o in outs)
-    (w, mx, my, c00, c01, c11), P0 = _pad_rows(
-        [w, mx, my, c00, c01, c11], tile_p)
-    P, K = w.shape
-    dtype = w.dtype
-    out = pl.BlockSpec((max_out, tile_p), lambda i: (0, i),
-                       memory_space=pltpu.VMEM)
-    if block <= 0:
-        block = next(b for b in (16, 8, 4, 2, 1) if max_out % b == 0)
-    if layout == "kp":
-        ins = [jnp.transpose(a, (1, 0)) for a in (w, mx, my, c00, c01,
-                                                  c11)]       # [K, P]
-        chan = pl.BlockSpec((K, tile_p), lambda i: (0, i),
-                            memory_space=pltpu.VMEM)
-        kern = functools.partial(_kernel_kt, cap=max_out,
-                                 min_separation=float(min_separation),
-                                 metric=int(metric), block=block)
-        scratch = pltpu.VMEM((K, tile_p), dtype)
-    else:
-        ins = [w, mx, my, c00, c01, c11]
-        chan = pl.BlockSpec((tile_p, K), lambda i: (i, 0),
-                            memory_space=pltpu.VMEM)
-        kern = functools.partial(_kernel, cap=max_out,
-                                 min_separation=float(min_separation),
-                                 metric=int(metric), block=block)
-        scratch = pltpu.VMEM((tile_p, K), dtype)
+    K pads to a power of two with zero-weight candidates, which never
+    seed or join a cluster."""
+    P, K0 = w.shape
+    kp = next_pow2(K0)
+    capp = next_pow2(max_out)
+    ins = [jnp.pad(a, ((0, 0), (0, kp - K0)),
+                   constant_values=1.0 if i in (3, 5) else 0.0)
+           for i, a in enumerate((w, mx, my, c00, c01, c11))]
+    chan = pl.BlockSpec((1, kp), lambda i: (i, 0))
+    out = pl.BlockSpec((1, capp), lambda i: (i, 0))
     outs = pl.pallas_call(
-        kern,
-        grid=(P // tile_p,),
+        functools.partial(_kernel, cap=max_out,
+                          min_separation=float(min_separation),
+                          metric=int(metric)),
+        grid=(P,),
         in_specs=[chan] * 6,
-        out_specs=(out,) * 6,
-        out_shape=tuple(jax.ShapeDtypeStruct((max_out, P), dtype)
-                        for _ in range(6)),
-        scratch_shapes=[scratch],
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=int(48e6 * max(1, tile_p // 128))),
-        cost_estimate=pl.CostEstimate(
-            flops=30 * P * K * max_out,
-            bytes_accessed=(6 * P * K + 6 * P * max_out) * 4,
-            transcendentals=0),
+        out_specs=[out] * 6,
+        out_shape=[jax.ShapeDtypeStruct((P, capp), w.dtype)] * 6,
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=NUM_WARPS,
+                                           num_stages=1),
         interpret=interpret,
+        name="greedy_merge",
     )(*ins)
-    return tuple(jnp.transpose(o, (1, 0))[:P0] for o in outs)
-
-
-def _kernel4(w_ref, m0_ref, m1_ref, m2_ref, m3_ref,
-             c0_ref, c1_ref, c2_ref, c3_ref, c4_ref, c5_ref, c6_ref,
-             c7_ref, c8_ref, c9_ref,
-             ow_ref, om0_ref, om1_ref, om2_ref, om3_ref,
-             oc0_ref, oc1_ref, oc2_ref, oc3_ref, oc4_ref, oc5_ref,
-             oc6_ref, oc7_ref, oc8_ref, oc9_ref,
-             *, cap: int, min_separation: float, block: int,
-             ax: int = 1):
-    """4-D variant (dynamic maps): symmetric 4x4 covariances as 10 scalar
-    channels ordered (00,01,02,03,11,12,13,22,23,33); Mahalanobis via the
-    channelized Cholesky of filter/update4.py::chol4_solve_sq.
-
-    ax: the candidate axis of the channel blocks — 1 for the original
-    [tile_p, K] layout, 0 for the transposed [K, tile_p] layout whose
-    reductions run along sublanes (see _kernel_kt; same measured win)."""
-    K = w_ref.shape[ax]
-    tp = w_ref.shape[1 - ax]
-    means = [m0_ref[:, :], m1_ref[:, :], m2_ref[:, :], m3_ref[:, :]]
-    covs = [c0_ref[:, :], c1_ref[:, :], c2_ref[:, :], c3_ref[:, :],
-            c4_ref[:, :], c5_ref[:, :], c6_ref[:, :], c7_ref[:, :],
-            c8_ref[:, :], c9_ref[:, :]]
-    m_out = [om0_ref, om1_ref, om2_ref, om3_ref]
-    c_out = [oc0_ref, oc1_ref, oc2_ref, oc3_ref, oc4_ref, oc5_ref,
-             oc6_ref, oc7_ref, oc8_ref, oc9_ref]
-    iota = jax.lax.broadcasted_iota(jnp.int32, w_ref.shape, ax)
-
-    zeros_out = jnp.zeros((cap, tp), w_ref.dtype)
-    ones_out = jnp.ones((cap, tp), w_ref.dtype)
-    ow_ref[:, :] = zeros_out
-    for o in m_out:
-        o[:, :] = zeros_out
-    # identity pre-fill: diagonal channels (00,11,22,33) = idx 0,4,7,9
-    for idx, o in enumerate(c_out):
-        o[:, :] = ones_out if idx in (0, 4, 7, 9) else zeros_out
-
-    # channel index of symmetric (i, j), i<=j, in the 10-channel order
-    S = {(0, 0): 0, (0, 1): 1, (0, 2): 2, (0, 3): 3, (1, 1): 4,
-         (1, 2): 5, (1, 3): 6, (2, 2): 7, (2, 3): 8, (3, 3): 9}
-
-    def one_pick(w_rem):
-        mval = jnp.max(w_rem, axis=ax, keepdims=True)
-        hit = w_rem == mval
-        first = jnp.min(jnp.where(hit, iota, K), axis=ax, keepdims=True)
-        onehot = iota == first
-        pick = lambda c: jnp.sum(jnp.where(onehot, c, 0.0), axis=ax,
-                                 keepdims=True)
-        a = [0.5 * (pick(c) + c) for c in covs]              # avg cov
-        d = [pick(m) - m for m in means]
-        s = lambda ii, jj: a[S[(min(ii, jj), max(ii, jj))]]
-        eps = 1e-12
-        l00 = jnp.sqrt(jnp.maximum(s(0, 0), eps))
-        l10 = s(0, 1) / l00
-        l20 = s(0, 2) / l00
-        l30 = s(0, 3) / l00
-        l11 = jnp.sqrt(jnp.maximum(s(1, 1) - l10 * l10, eps))
-        l21 = (s(1, 2) - l20 * l10) / l11
-        l31 = (s(1, 3) - l30 * l10) / l11
-        l22 = jnp.sqrt(jnp.maximum(s(2, 2) - l20 * l20 - l21 * l21, eps))
-        l32 = (s(2, 3) - l30 * l20 - l31 * l21) / l22
-        l33 = jnp.sqrt(jnp.maximum(
-            s(3, 3) - l30 * l30 - l31 * l31 - l32 * l32, eps))
-        y0 = d[0] / l00
-        y1 = (d[1] - l10 * y0) / l11
-        y2 = (d[2] - l20 * y0 - l21 * y1) / l22
-        y3 = (d[3] - l30 * y0 - l31 * y1 - l32 * y2) / l33
-        dist = y0 * y0 + y1 * y1 + y2 * y2 + y3 * y3
-        sel = ((dist < min_separation) & (w_rem > 0.0)) | onehot
-        sel = sel & (mval > 0.0)
-        sw = jnp.where(sel, w_rem, 0.0)
-        wsum = jnp.sum(sw, axis=ax)
-        inv = jnp.where(wsum > 0.0, 1.0 / jnp.maximum(wsum, 1e-38), 0.0)
-        mu = [jnp.sum(sw * m, axis=ax) * inv for m in means]
-        dd = [jnp.expand_dims(mu[k], ax) - means[k] for k in range(4)]
-        vals = [wsum] + mu
-        ci = 0
-        for aa in range(4):
-            for bb in range(aa, 4):
-                nc = jnp.sum(sw * (covs[ci] + dd[aa] * dd[bb]),
-                             axis=ax) * inv
-                if aa == bb:
-                    nc = jnp.where(wsum > 0.0, nc, 1.0)
-                vals.append(nc)
-                ci += 1
-        return jnp.where(sel, 0.0, w_rem), vals
-
-    refs = [ow_ref] + m_out + c_out
-
-    # block picks per iteration + tile-aligned slab stores (see _kernel)
-    def body(carry):
-        i, w_rem = carry
-        outs = []
-        for _b in range(block):
-            w_rem, vals = one_pick(w_rem)
-            outs.append(vals)
-        ia = pl.multiple_of(i, block)    # see _kernel: while-carry hint
-        for k, ref in enumerate(refs):
-            ref[pl.ds(ia, block), :] = jnp.stack(
-                [o[k] for o in outs], axis=0)
-        return i + block, w_rem
-
-    def cond(carry):
-        i, w_rem = carry
-        return (i < cap) & jnp.any(w_rem > 0.0)
-
-    jax.lax.while_loop(cond, body, (jnp.int32(0), w_ref[:, :]))
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("min_separation", "max_out", "tile_p",
-                                    "interpret", "layout"))
-def greedy_merge4_pallas(w, mean_channels, cov_channels, min_separation,
-                         max_out: int, tile_p: int = 128,
-                         interpret: bool = False, layout: str = "kp"):
-    """Drop-in for filter.update4.greedy_merge4.
-
-    w [P, K]; mean_channels [P, 4, K]; cov_channels [P, 10, K].
-    Returns (w_out [P, max_out], mean_out [P, 4, max_out],
-             cov_out [P, 10, max_out]).
-    layout as in greedy_merge_pallas ("kp" transposed default).
-    """
-    ins = ([w] + [mean_channels[:, k, :] for k in range(4)]
-           + [cov_channels[:, k, :] for k in range(10)])
-    ins, P0 = _pad_rows(ins, tile_p)
-    P, K = ins[0].shape
-    dtype = w.dtype
-    if layout == "kp":
-        ins = [jnp.transpose(a, (1, 0)) for a in ins]         # [K, P]
-        chan = pl.BlockSpec((K, tile_p), lambda i: (0, i),
-                            memory_space=pltpu.VMEM)
-        ax = 0
-    else:
-        chan = pl.BlockSpec((tile_p, K), lambda i: (i, 0),
-                            memory_space=pltpu.VMEM)
-        ax = 1
-    out = pl.BlockSpec((max_out, tile_p), lambda i: (0, i),
-                       memory_space=pltpu.VMEM)
-    block = next(b for b in (16, 8, 4, 2, 1) if max_out % b == 0)
-    outs = pl.pallas_call(
-        functools.partial(_kernel4, cap=max_out,
-                          min_separation=float(min_separation),
-                          block=block, ax=ax),
-        grid=(P // tile_p,),
-        in_specs=[chan] * 15,
-        out_specs=(out,) * 15,
-        out_shape=tuple(jax.ShapeDtypeStruct((max_out, P), dtype)
-                        for _ in range(15)),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=int(64e6)),
-        cost_estimate=pl.CostEstimate(
-            flops=80 * P * K * max_out,
-            bytes_accessed=(15 * P * K + 15 * P * max_out) * 4,
-            transcendentals=4 * P * K * max_out),
-        interpret=interpret,
-    )(*ins)
-    outs = [jnp.transpose(o, (1, 0))[:P0] for o in outs]
-    return (outs[0], jnp.stack(outs[1:5], axis=1),
-            jnp.stack(outs[5:15], axis=1))
-
-
-def _kernel3(w_ref, m0_ref, m1_ref, m2_ref,
-             c00_ref, c01_ref, c02_ref, c11_ref, c12_ref, c22_ref,
-             ow_ref, om0_ref, om1_ref, om2_ref,
-             o00_ref, o01_ref, o02_ref, o11_ref, o12_ref, o22_ref,
-             *, cap: int, min_separation: float, block: int,
-             ax: int = 1):
-    """3-D variant (disparity-space Gaussians): Mahalanobis via the
-    closed-form 3x3 adjugate/determinant (device_math.cuh:331-345).
-    ax as in _kernel4."""
-    K = w_ref.shape[ax]
-    tp = w_ref.shape[1 - ax]
-    means = [m0_ref[:, :], m1_ref[:, :], m2_ref[:, :]]
-    covs = [c00_ref[:, :], c01_ref[:, :], c02_ref[:, :],
-            c11_ref[:, :], c12_ref[:, :], c22_ref[:, :]]
-    m_out = [om0_ref, om1_ref, om2_ref]
-    c_out = [o00_ref, o01_ref, o02_ref, o11_ref, o12_ref, o22_ref]
-    iota = jax.lax.broadcasted_iota(jnp.int32, w_ref.shape, ax)
-
-    zeros_out = jnp.zeros((cap, tp), w_ref.dtype)
-    ones_out = jnp.ones((cap, tp), w_ref.dtype)
-    ow_ref[:, :] = zeros_out
-    for o in m_out:
-        o[:, :] = zeros_out
-    for idx, o in enumerate(c_out):       # diag channels: 00, 11, 22
-        o[:, :] = ones_out if idx in (0, 3, 5) else zeros_out
-
-    def one_pick(w_rem):
-        mval = jnp.max(w_rem, axis=ax, keepdims=True)
-        hit = w_rem == mval
-        first = jnp.min(jnp.where(hit, iota, K), axis=ax, keepdims=True)
-        onehot = iota == first
-        pick = lambda c: jnp.sum(jnp.where(onehot, c, 0.0), axis=ax,
-                                 keepdims=True)
-        a00, a01, a02, a11, a12, a22 = (
-            0.5 * (pick(c) + c) for c in covs)
-        d0, d1, d2 = (pick(m) - m for m in means)
-        det = (a00 * (a11 * a22 - a12 * a12)
-               - a01 * (a01 * a22 - a12 * a02)
-               + a02 * (a01 * a12 - a11 * a02))
-        i00 = a11 * a22 - a12 * a12
-        i01 = a02 * a12 - a01 * a22
-        i02 = a01 * a12 - a02 * a11
-        i11 = a00 * a22 - a02 * a02
-        i12 = a02 * a01 - a00 * a12
-        i22 = a00 * a11 - a01 * a01
-        dist = (d0 * d0 * i00 + d1 * d1 * i11 + d2 * d2 * i22
-                + 2.0 * (d0 * d1 * i01 + d0 * d2 * i02 + d1 * d2 * i12)
-                ) / det
-        sel = ((dist < min_separation) & (w_rem > 0.0)) | onehot
-        sel = sel & (mval > 0.0)
-        sw = jnp.where(sel, w_rem, 0.0)
-        wsum = jnp.sum(sw, axis=ax)
-        inv = jnp.where(wsum > 0.0, 1.0 / jnp.maximum(wsum, 1e-38), 0.0)
-        mu = [jnp.sum(sw * m, axis=ax) * inv for m in means]
-        dd = [jnp.expand_dims(mu[k], ax) - means[k] for k in range(3)]
-        vals = [wsum] + mu
-        pairs = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
-        for ci, (aa, bb) in enumerate(pairs):
-            nc = jnp.sum(sw * (covs[ci] + dd[aa] * dd[bb]),
-                         axis=ax) * inv
-            if aa == bb:
-                nc = jnp.where(wsum > 0.0, nc, 1.0)
-            vals.append(nc)
-        return jnp.where(sel, 0.0, w_rem), vals
-
-    refs = [ow_ref] + m_out + c_out
-
-    # block picks per iteration + tile-aligned slab stores (see _kernel)
-    def body(carry):
-        i, w_rem = carry
-        outs = []
-        for _b in range(block):
-            w_rem, vals = one_pick(w_rem)
-            outs.append(vals)
-        ia = pl.multiple_of(i, block)    # see _kernel: while-carry hint
-        for k, ref in enumerate(refs):
-            ref[pl.ds(ia, block), :] = jnp.stack(
-                [o[k] for o in outs], axis=0)
-        return i + block, w_rem
-
-    def cond(carry):
-        i, w_rem = carry
-        return (i < cap) & jnp.any(w_rem > 0.0)
-
-    jax.lax.while_loop(cond, body, (jnp.int32(0), w_ref[:, :]))
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("min_separation", "max_out", "tile_p",
-                                    "interpret", "layout"))
-def greedy_merge3_pallas(w, m0, m1, m2, c00, c01, c02, c11, c12, c22,
-                         min_separation, max_out: int, tile_p: int = 128,
-                         interpret: bool = False, layout: str = "kp"):
-    """Drop-in for ops.gm.greedy_merge_channels3. Ten [P, K] channels in,
-    ten [P, max_out] channels out (w, m0..m2, c00,c01,c02,c11,c12,c22).
-    layout as in greedy_merge_pallas ("kp" transposed default)."""
-    ins, P0 = _pad_rows([w, m0, m1, m2, c00, c01, c02, c11, c12, c22],
-                        tile_p)
-    P, K = ins[0].shape
-    dtype = w.dtype
-    if layout == "kp":
-        ins = [jnp.transpose(a, (1, 0)) for a in ins]         # [K, P]
-        chan = pl.BlockSpec((K, tile_p), lambda i: (0, i),
-                            memory_space=pltpu.VMEM)
-        ax = 0
-    else:
-        chan = pl.BlockSpec((tile_p, K), lambda i: (i, 0),
-                            memory_space=pltpu.VMEM)
-        ax = 1
-    out = pl.BlockSpec((max_out, tile_p), lambda i: (0, i),
-                       memory_space=pltpu.VMEM)
-    block = next(b for b in (16, 8, 4, 2, 1) if max_out % b == 0)
-    outs = pl.pallas_call(
-        functools.partial(_kernel3, cap=max_out,
-                          min_separation=float(min_separation),
-                          block=block, ax=ax),
-        grid=(P // tile_p,),
-        in_specs=[chan] * 10,
-        out_specs=(out,) * 10,
-        out_shape=tuple(jax.ShapeDtypeStruct((max_out, P), dtype)
-                        for _ in range(10)),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=int(48e6)),
-        cost_estimate=pl.CostEstimate(
-            flops=60 * P * K * max_out,
-            bytes_accessed=(10 * P * K + 10 * P * max_out) * 4,
-            transcendentals=0),
-        interpret=interpret,
-    )(*ins)
-    return tuple(jnp.transpose(o, (1, 0))[:P0] for o in outs)
+    return tuple(o[:, :max_out] for o in outs)

@@ -1,658 +1,246 @@
-"""Fused particle x measurement x feature update kernel (Pallas, TPU).
+"""Fused per-measurement normalizer + top-k1 detection select (Pallas,
+Triton route).
 
-The north-star kernel replacing preUpdateSynthKernel + the normalizer and
-selection stages of phdUpdateKernel (src/phdfilter.cu:1824-1925,
-2190-2245): in a single pass over the [P, F] Kalman channel inputs held in
-VMEM it computes, per (particle, measurement):
+Replaces preUpdateSynthKernel + the normalizer and selection stages of
+phdUpdateKernel (src/phdfilter.cu:1824-1925, 2190-2245), which ran one
+thread block per particle with threads looping over features. Here one
+program holds one particle's F features (F padded to a power of two) and
+loops over the measurements. Per (particle, measurement) it computes
 
   - sum_exp[p, m] = sum_f exp(log pd + log w + log N(z_m - h_f; S_f))
     (the per-measurement PHD normalizer numerator)
   - the k1 strongest *normalized, pruned* detection terms with their
-    updated means and the channels needed by the merge
-    (w, mx, my, u00, u01, u11, log(pd*w)) — i.e. the detection section of
-    the merge candidate pool, fully materialized
+    updated means and the channels the merge needs
+    (w, mx, my, u00, u01, u11, log(pd*w)).
 
-Why: XLA's generic path materializes the [P,M,F] detection tensor and
-selects with sort-based top_k + row gathers, which measure at 0.8-2 s at
-the dense-stress config on this TPU. The kernel never touches HBM with
-[P,M,F] data and does selection as k1 masked-max passes on VMEM tiles.
-
-Outputs use [M, k1, P] / [M, P] layouts (big P axis tile-minor); callers
-transpose the small results.
+The XLA path (filter/update.py) writes the [P, M, F] log-likelihoods and
+weights to device memory several times and runs ``lax.top_k`` over P*M
+rows; here the [P, F] channels are read once, every [M, F] intermediate
+stays in registers, and each pick is one row argmax plus a gather of the
+winning feature's payload.
 """
 
 from __future__ import annotations
 
 import functools
-import math
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
+
+from phdslam_tpu.ops.linalg import wrap_angle
 
 LOG_2PI = 1.8378770664093453
 NEG_LARGE = -1e30
 
-
-def _kernel_by_index(z_ref, nv_ref, r_ref, b_ref, lpw_ref, si00_ref,
-                     si01_ref, si11_ref, lds_ref,
-                     sum_ref, wsel_ref, idxsel_ref, compat_ref,
-                     *, n_measure: int, k1: int, clutter_birth: float,
-                     min_weight: float, gate_threshold: float, raw: bool,
-                     with_compat: bool = True):
-    """Selection-only variant: per pick it emits the winning weight AND the
-    winning feature INDEX instead of extracting six payload channels with
-    masked reductions. The payload (updated means, covariances, log pd*w)
-    is measurement-independent per feature, so the caller reconstructs it
-    outside with [P, M, k1] take_along_axis gathers — O(P*M*k1) HBM traffic
-    versus O(k1 * P*M*F) VPU reduction work in here. Two reductions per
-    pick (max + first-index) instead of eight."""
-    r = r_ref[:, :]
-    b = b_ref[:, :]
-    lpw = lpw_ref[:, :]
-    base = lpw - LOG_2PI - 0.5 * lds_ref[:, :]
-    si00 = si00_ref[:, :]
-    si01 = si01_ref[:, :]
-    si11 = si11_ref[:, :]
-    tp, F = r.shape
-    iota = jax.lax.broadcasted_iota(jnp.int32, (tp, F), 1)
-    two_pi = 2.0 * math.pi
-
-    sum_ref[:, :] = jnp.zeros((n_measure, tp), r.dtype)
-    compat_ref[:, :] = jnp.zeros((n_measure, tp), r.dtype)
-    wsel_ref[:, :, :] = jnp.zeros((n_measure, k1, tp), r.dtype)
-    idxsel_ref[:, :, :] = jnp.zeros((n_measure, k1, tp), jnp.int32)
-
-    def one_measurement(m, _):
-        ir = z_ref[m, 0] - r
-        ib = z_ref[m, 1] - b
-        ib = ib - two_pi * jnp.round(ib / two_pi)
-        dist = ir * ir * si00 + 2.0 * ir * ib * si01 + ib * ib * si11
-        dist = jnp.maximum(dist, 0.0)
-        e = jnp.exp(base - 0.5 * dist)                     # [tp, F]
-        s = jnp.sum(e, axis=1)                             # [tp]
-        sum_ref[m, :] = s
-        if with_compat:
-            in_rng = lpw > (0.5 * NEG_LARGE)
-            compat_ref[m, :] = jnp.max(
-                jnp.where(in_rng & (dist < gate_threshold), 1.0, 0.0),
-                axis=1)
-        if raw:
-            w_det = e
-        else:
-            w_det = e * (1.0 / (s + clutter_birth))[:, None]
-            w_det = jnp.where(w_det >= min_weight, w_det, 0.0)
-
-        wrem = w_det
-        for j in range(k1):
-            mval = jnp.max(wrem, axis=1)                   # [tp]
-            hit = wrem == mval[:, None]
-            first = jnp.min(jnp.where(hit, iota, F), axis=1)
-            alive = mval > 0.0
-            wsel_ref[m, j, :] = jnp.where(alive, mval, 0.0)
-            idxsel_ref[m, j, :] = jnp.where(alive, first, 0)
-            wrem = jnp.where(iota == first[:, None], 0.0, wrem)
-        return 0
-
-    nv = jnp.minimum(nv_ref[0], n_measure)
-    jax.lax.fori_loop(0, nv, one_measurement, 0)
+# One particle per program; warps per program chosen by measurement at
+# the dense shape (P=8192, F=512, M=64; see PERF.md).
+NUM_WARPS = 1
 
 
-def _kernel(z_ref, nv_ref, r_ref, b_ref, lpw_ref, si00_ref, si01_ref,
-            si11_ref,
-            lds_ref, mx_ref, my_ref, g00_ref, g01_ref, g10_ref, g11_ref,
-            u00_ref, u01_ref, u11_ref,
-            sum_ref, wsel_ref, mxsel_ref, mysel_ref, u00sel_ref,
-            u01sel_ref, u11sel_ref, lpwsel_ref, compat_ref,
+def next_pow2(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
+def _kernel(nv_ref, zr_ref, zb_ref, r_ref, b_ref, lpw_ref, si00_ref,
+            si01_ref, si11_ref, lds_ref, mx_ref, my_ref, g00_ref, g01_ref,
+            g10_ref, g11_ref, u00_ref, u01_ref, u11_ref,
+            sum_ref, compat_ref, wsel_ref, mxsel_ref, mysel_ref,
+            u00sel_ref, u01sel_ref, u11sel_ref, lpwsel_ref,
             *, n_measure: int, k1: int, clutter_birth: float,
             min_weight: float, gate_threshold: float, raw: bool,
-            with_compat: bool = True, with_lpw: bool = True):
-    r = r_ref[:, :]
-    b = b_ref[:, :]
-    lpw = lpw_ref[:, :]
-    base = lpw - LOG_2PI - 0.5 * lds_ref[:, :]
-    si00 = si00_ref[:, :]
-    si01 = si01_ref[:, :]
-    si11 = si11_ref[:, :]
-    tp, F = r.shape
-    iota = jax.lax.broadcasted_iota(jnp.int32, (tp, F), 1)
-    two_pi = 2.0 * math.pi
+            with_compat: bool, with_lpw: bool):
+    r = r_ref[...]
+    b = b_ref[...]
+    lpw = lpw_ref[...]
+    base = lpw - LOG_2PI - 0.5 * lds_ref[...]
+    si00 = si00_ref[...]
+    si01 = si01_ref[...]
+    si11 = si11_ref[...]
+    in_rng = lpw > (0.5 * NEG_LARGE)
+    bp, fp = r.shape
+    kp = wsel_ref.shape[2]
+    rows = jax.lax.broadcasted_iota(jnp.int32, (bp,), 0)
+    cols = jax.lax.broadcasted_iota(jnp.int32, (bp, fp), 1)
+    slot = jax.lax.broadcasted_iota(jnp.int32, (bp, kp), 1)
+    sel_refs = (wsel_ref, mxsel_ref, mysel_ref, u00sel_ref, u01sel_ref,
+                u11sel_ref, lpwsel_ref)
+    zero_row = jnp.zeros((bp,), r.dtype)
+    zero_tile = jnp.zeros((bp, kp), r.dtype)
 
-    # zero-init so measurement columns beyond the dynamic count nv hold
-    # zeros, not VMEM garbage (zero weights kill those candidates in the
-    # merge, and zero channels keep 0*channel products finite)
-    zmp = jnp.zeros((n_measure, tp), r.dtype)
-    zmkp = jnp.zeros((n_measure, k1, tp), r.dtype)
-    sum_ref[:, :] = zmp
-    compat_ref[:, :] = zmp
-    for o in (wsel_ref, mxsel_ref, mysel_ref, u00sel_ref, u01sel_ref,
-              u11sel_ref, lpwsel_ref):
-        o[:, :, :] = zmkp
-
-    def one_measurement(m, _):
-        ir = z_ref[m, 0] - r
-        ib = z_ref[m, 1] - b
-        ib = ib - two_pi * jnp.round(ib / two_pi)
-        dist = ir * ir * si00 + 2.0 * ir * ib * si01 + ib * ib * si11
+    def one_measurement(m, carry):
+        zr = zr_ref[m]
+        zb = zb_ref[m]
+        ir = zr - r
+        ib = wrap_angle(zb - b)
         # nonnegative by definition; float32-indefinite covariances can
         # make the raw quadratic hugely negative -> exp overflow
-        dist = jnp.maximum(dist, 0.0)
-        e = jnp.exp(base - 0.5 * dist)                     # [tp, F]
-        s = jnp.sum(e, axis=1)                             # [tp]
-        sum_ref[m, :] = s
-        # birth-gating compatibility: any in-range feature within the
-        # innovation gate (in-range <=> finite lpw here). Static-skipped
-        # when the caller does not gate births (the output stays the
-        # zero-fill) — one masked max-reduce per measurement saved.
-        if with_compat:
-            in_rng = lpw > (0.5 * NEG_LARGE)
-            compat_ref[m, :] = jnp.max(
-                jnp.where(in_rng & (dist < gate_threshold), 1.0, 0.0),
-                axis=1)
+        dist = jnp.maximum(
+            ir * ir * si00 + 2.0 * ir * ib * si01 + ib * ib * si11, 0.0)
+        e = jnp.exp(base - 0.5 * dist)                      # [bp, fp]
+        s = jnp.sum(e, axis=1)                              # [bp]
+        sum_ref[:, m] = s
+        # birth gating: some in-range feature inside the innovation gate
+        compat_ref[:, m] = (jnp.max(
+            jnp.where(in_rng & (dist < gate_threshold), 1.0, 0.0), axis=1)
+            if with_compat else zero_row)
         if raw:
-            # unnormalized detection terms: the caller applies its own
-            # per-measurement normalizer (CPHD scale_detect, mixed joint
-            # normalizer). Selection order is invariant to any positive
-            # per-(p, m) scale, so the top-k1 picks are identical.
-            w_det = e
+            # unnormalized detection terms for callers with their own
+            # normalizer (CPHD, mixed); the picks are invariant to any
+            # positive per-(p, m) scale
+            wrem = e
         else:
-            w_det = e * (1.0 / (s + clutter_birth))[:, None]
-            w_det = jnp.where(w_det >= min_weight, w_det, 0.0)
-        # detection means for this measurement (shared across picks)
-        mxd = mx_ref[:, :] + g00_ref[:, :] * ir + g01_ref[:, :] * ib
-        myd = my_ref[:, :] + g10_ref[:, :] * ir + g11_ref[:, :] * ib
+            wrem = e * (1.0 / (s + clutter_birth))[:, None]
+            wrem = jnp.where(wrem >= min_weight, wrem, 0.0)
 
-        wrem = w_det
+        outs = [zero_tile] * 7
         for j in range(k1):
-            mval = jnp.max(wrem, axis=1)                   # [tp]
-            hit = wrem == mval[:, None]
-            first = jnp.min(jnp.where(hit, iota, F), axis=1)
-            onehot = iota == first[:, None]
-            pick = lambda c: jnp.sum(jnp.where(onehot, c, 0.0), axis=1)
-            wsel_ref[m, j, :] = jnp.where(mval > 0.0, mval, 0.0)
-            mxsel_ref[m, j, :] = pick(mxd)
-            mysel_ref[m, j, :] = pick(myd)
-            u00sel_ref[m, j, :] = pick(u00_ref[:, :])
-            u01sel_ref[m, j, :] = pick(u01_ref[:, :])
-            u11sel_ref[m, j, :] = pick(u11_ref[:, :])
-            if with_lpw:
-                # only particleWeighting == 2 consumes the picked
-                # log(pd*w); static-skipped otherwise
-                lpwsel_ref[m, j, :] = pick(lpw)
-            wrem = jnp.where(onehot, 0.0, wrem)
-        return 0
+            mval = jnp.max(wrem, axis=1)                    # [bp]
+            idx = jnp.argmax(wrem, axis=1).astype(jnp.int32)  # first max
+            take = lambda ref: ref[rows, idx]
+            pr = zr - take(r_ref)
+            pb = wrap_angle(zb - take(b_ref))
+            vals = (jnp.maximum(mval, 0.0),
+                    take(mx_ref) + take(g00_ref) * pr + take(g01_ref) * pb,
+                    take(my_ref) + take(g10_ref) * pr + take(g11_ref) * pb,
+                    take(u00_ref), take(u01_ref), take(u11_ref),
+                    take(lpw_ref) if with_lpw else zero_row)
+            outs = [jnp.where(slot == j, v[:, None], o)
+                    for v, o in zip(vals, outs)]
+            wrem = jnp.where(cols == idx[:, None], 0.0, wrem)
+        for ref, o in zip(sel_refs, outs):
+            ref[:, m, :] = o
+        return carry
+
+    def no_measurement(m, carry):
+        # columns at or beyond the valid count are zeros
+        sum_ref[:, m] = zero_row
+        compat_ref[:, m] = zero_row
+        for ref in sel_refs:
+            ref[:, m, :] = zero_tile
+        return carry
 
     nv = jnp.minimum(nv_ref[0], n_measure)
     jax.lax.fori_loop(0, nv, one_measurement, 0)
-
-
-def _kernel_ft(z_ref, nv_ref, r_ref, b_ref, lpw_ref, si00_ref, si01_ref,
-               si11_ref,
-               lds_ref, mx_ref, my_ref, g00_ref, g01_ref, g10_ref, g11_ref,
-               u00_ref, u01_ref, u11_ref,
-               sum_ref, wsel_ref, mxsel_ref, mysel_ref, u00sel_ref,
-               u01sel_ref, u11sel_ref, lpwsel_ref, compat_ref,
-               *, n_measure: int, k1: int, clutter_birth: float,
-               min_weight: float, gate_threshold: float, raw: bool,
-               with_compat: bool = True, with_lpw: bool = True):
-    """Transposed-layout twin of ``_kernel``: channel blocks are [F, tp]
-    (features on the SUBLANE axis, particles on the LANE axis), so the
-    per-measurement normalizer sum and every per-pick reduction (max,
-    first-index, six payload extractions) run along sublanes — strided
-    vreg adds at VPU throughput — instead of along lanes. The same
-    layout change that won on the merge kernel (``merge_pallas._kernel_kt``),
-    applied to the selection loop's ~(2 + 8*k1) reductions per
-    measurement. Same arithmetic, same outputs (reduction order differs
-    -> float32 ulp-level drift in sum_exp)."""
-    r = r_ref[:, :]
-    b = b_ref[:, :]
-    lpw = lpw_ref[:, :]
-    base = lpw - LOG_2PI - 0.5 * lds_ref[:, :]
-    si00 = si00_ref[:, :]
-    si01 = si01_ref[:, :]
-    si11 = si11_ref[:, :]
-    F, tp = r.shape
-    iota = jax.lax.broadcasted_iota(jnp.int32, (F, tp), 0)
-    two_pi = 2.0 * math.pi
-
-    zmp = jnp.zeros((n_measure, tp), r.dtype)
-    zmkp = jnp.zeros((n_measure, k1, tp), r.dtype)
-    sum_ref[:, :] = zmp
-    compat_ref[:, :] = zmp
-    for o in (wsel_ref, mxsel_ref, mysel_ref, u00sel_ref, u01sel_ref,
-              u11sel_ref, lpwsel_ref):
-        o[:, :, :] = zmkp
-
-    def one_measurement(m, _):
-        ir = z_ref[m, 0] - r
-        ib = z_ref[m, 1] - b
-        ib = ib - two_pi * jnp.round(ib / two_pi)
-        dist = ir * ir * si00 + 2.0 * ir * ib * si01 + ib * ib * si11
-        dist = jnp.maximum(dist, 0.0)
-        e = jnp.exp(base - 0.5 * dist)                     # [F, tp]
-        s = jnp.sum(e, axis=0)                             # [tp]
-        sum_ref[m, :] = s
-        if with_compat:
-            in_rng = lpw > (0.5 * NEG_LARGE)
-            compat_ref[m, :] = jnp.max(
-                jnp.where(in_rng & (dist < gate_threshold), 1.0, 0.0),
-                axis=0)
-        if raw:
-            w_det = e
-        else:
-            w_det = e * (1.0 / (s + clutter_birth))[None, :]
-            w_det = jnp.where(w_det >= min_weight, w_det, 0.0)
-        mxd = mx_ref[:, :] + g00_ref[:, :] * ir + g01_ref[:, :] * ib
-        myd = my_ref[:, :] + g10_ref[:, :] * ir + g11_ref[:, :] * ib
-
-        wrem = w_det
-        for j in range(k1):
-            mval = jnp.max(wrem, axis=0)                   # [tp]
-            hit = wrem == mval[None, :]
-            first = jnp.min(jnp.where(hit, iota, F), axis=0)
-            onehot = iota == first[None, :]
-            pick = lambda c: jnp.sum(jnp.where(onehot, c, 0.0), axis=0)
-            wsel_ref[m, j, :] = jnp.where(mval > 0.0, mval, 0.0)
-            mxsel_ref[m, j, :] = pick(mxd)
-            mysel_ref[m, j, :] = pick(myd)
-            u00sel_ref[m, j, :] = pick(u00_ref[:, :])
-            u01sel_ref[m, j, :] = pick(u01_ref[:, :])
-            u11sel_ref[m, j, :] = pick(u11_ref[:, :])
-            if with_lpw:
-                lpwsel_ref[m, j, :] = pick(lpw)
-            wrem = jnp.where(onehot, 0.0, wrem)
-        return 0
-
-    nv = jnp.minimum(nv_ref[0], n_measure)
-    jax.lax.fori_loop(0, nv, one_measurement, 0)
+    jax.lax.fori_loop(nv, sum_ref.shape[1], no_measurement, 0)
 
 
 @functools.partial(jax.jit, static_argnums=(3,),
-                   static_argnames=("k1", "tile_p", "interpret", "raw",
-                                    "with_compat", "with_lpw", "layout"))
+                   static_argnames=("k1", "interpret", "raw", "with_compat",
+                                    "with_lpw"))
 def fused_update_select(z_rb, pre, gm, cfg, k1: int = 8,
-                        tile_p: int = 128, interpret: bool = False,
-                        raw: bool = False, n_valid=None,
-                        layout: str = "pf",
-                        with_compat: bool = None, with_lpw: bool = None):
-    """Run the fused kernel. pre: filter.update.PreUpdate channels; gm:
+                        interpret: bool = False, raw: bool = False,
+                        n_valid=None, with_compat: bool = None,
+                        with_lpw: bool = None):
+    """Run the fused select. pre: filter.update.PreUpdate channels; gm:
     Gaussian2DMixture. Returns (sum_exp [P,M], w_sel, mx_sel, my_sel,
-    u00_sel, u01_sel, u11_sel, lpw_sel — each [P,M,k1]).
+    u00_sel, u01_sel, u11_sel, lpw_sel — each [P,M,k1] — and compat [P,M]
+    bool: some in-range feature within cfg.gateThreshold of the
+    measurement, for birth gating).
 
     raw=True returns unnormalized, unpruned detection values
     (w_sel = exp(lw)) for callers with their own normalizers.
 
-    Also returns compat [P, M] (1.0 where some in-range feature falls
-    within cfg.gateThreshold of the measurement — birth gating, N23).
     Measurement columns at index >= n_valid (a traced int32 scalar; the
-    1 + last valid index works for non-contiguous masks) are ZEROS; any
-    interior invalid columns below n_valid are computed as before —
-    callers mask with z_valid exactly as in the XLA path either way.
+    1 + last valid index works for non-contiguous masks) are zeros; any
+    interior invalid columns below n_valid are computed, and callers mask
+    with z_valid exactly as in the XLA path. Outputs a caller does not use
+    are skipped (with_compat defaults to cfg.gateBirths, with_lpw to
+    particleWeighting == 2) and come back as zeros.
     """
     from phdslam_tpu.ops.linalg import safe_log
 
-    # dead-output elision (XLA cannot DCE inside the opaque kernel): the
-    # compat reduction only feeds birth gating, the lpw pick only feeds
-    # particleWeighting == 2 — skip their VPU passes when unused
     if with_compat is None:
         with_compat = bool(cfg.gateBirths)
     if with_lpw is None:
         with_lpw = cfg.particleWeighting == 2
 
-    P0, F = pre.r.shape
+    P, F0 = pre.r.shape
     M = z_rb.shape[0]
     lpw = jnp.maximum(safe_log(pre.pd) + safe_log(gm.w), NEG_LARGE)
     chans = [pre.r, pre.bearing, lpw, pre.si00, pre.si01, pre.si11,
              pre.log_det_s, gm.mx, gm.my, pre.g00, pre.g01, pre.g10,
              pre.g11, pre.u00, pre.u01, pre.u11]
-    pad = (-P0) % tile_p
-    if pad:
-        # padded rows: benign geometry with lpw = NEG_LARGE -> zero
-        # contributions everywhere (exp underflows, weights prune to 0)
-        chans = [jnp.pad(c, ((0, pad), (0, 0)),
-                         constant_values=NEG_LARGE if i == 2 else
-                         (1.0 if i in (3, 5) else 0.0))
-                 for i, c in enumerate(chans)]
-    P = P0 + pad
+    # pad features to a power of two with benign geometry and
+    # lpw = NEG_LARGE: exp underflows to 0, so padded slots add nothing to
+    # the sums and are never picked over a live one
+    fp = next_pow2(F0)
+    chans = [jnp.pad(c, ((0, 0), (0, fp - F0)),
+                     constant_values=NEG_LARGE if i == 2 else
+                     (1.0 if i in (3, 5) else 0.0))
+             for i, c in enumerate(chans)]
+    mp = next_pow2(M)
+    kp = next_pow2(k1)
+    zr = jnp.pad(z_rb[:, 0], (0, mp - M))
+    zb = jnp.pad(z_rb[:, 1], (0, mp - M))
     nv = jnp.full((1,), M, jnp.int32) if n_valid is None \
         else jnp.asarray(n_valid, jnp.int32).reshape(1)
 
-    if layout == "fp":
-        chans = [jnp.transpose(c, (1, 0)) for c in chans]   # [F, P]
-        chan = pl.BlockSpec((F, tile_p), lambda i: (0, i),
-                            memory_space=pltpu.VMEM)
-        kern = _kernel_ft
-    else:
-        chan = pl.BlockSpec((tile_p, F), lambda i: (i, 0),
-                            memory_space=pltpu.VMEM)
-        kern = _kernel
-    out_mp = pl.BlockSpec((M, tile_p), lambda i: (0, i),
-                          memory_space=pltpu.VMEM)
-    out_mkp = pl.BlockSpec((M, k1, tile_p), lambda i: (0, 0, i),
-                           memory_space=pltpu.VMEM)
     dtype = pre.r.dtype
+    vec = lambda n: pl.BlockSpec((n,), lambda i: (0,))
+    chan = pl.BlockSpec((1, fp), lambda i: (i, 0))
+    out_mp = pl.BlockSpec((1, mp), lambda i: (i, 0))
+    out_mkp = pl.BlockSpec((1, mp, kp), lambda i: (i, 0, 0))
     outs = pl.pallas_call(
         functools.partial(
-            kern, n_measure=M, k1=k1,
+            _kernel, n_measure=M, k1=k1,
             clutter_birth=float(cfg.clutterDensity + cfg.birthWeight),
             min_weight=float(cfg.minFeatureWeight),
             gate_threshold=float(cfg.gateThreshold), raw=raw,
             with_compat=with_compat, with_lpw=with_lpw),
-        grid=(P // tile_p,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 2
-        + [chan] * 16,
-        out_specs=(out_mp,) + (out_mkp,) * 7 + (out_mp,),
-        out_shape=(
-            jax.ShapeDtypeStruct((M, P), dtype),
-        ) + tuple(jax.ShapeDtypeStruct((M, k1, P), dtype)
-                  for _ in range(7))
-        + (jax.ShapeDtypeStruct((M, P), dtype),),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=int(48e6)),
-        cost_estimate=pl.CostEstimate(
-            flops=(12 + 10 * k1) * P * M * F,
-            bytes_accessed=(16 * P * F + 8 * P * M * k1) * 4,
-            transcendentals=P * M * F),
+        grid=(P,),
+        in_specs=[vec(1), vec(mp), vec(mp)] + [chan] * 16,
+        out_specs=[out_mp, out_mp] + [out_mkp] * 7,
+        out_shape=[jax.ShapeDtypeStruct((P, mp), dtype)] * 2
+        + [jax.ShapeDtypeStruct((P, mp, kp), dtype)] * 7,
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=NUM_WARPS,
+                                           num_stages=1),
         interpret=interpret,
-    )(z_rb, nv, *chans)
-    sum_exp = jnp.transpose(outs[0], (1, 0))[:P0]           # [P, M]
-    sel = [jnp.transpose(o, (2, 0, 1))[:P0] for o in outs[1:8]]
-    compat = jnp.transpose(outs[8], (1, 0))[:P0] > 0.5      # [P, M]
+        name="fused_update_select",
+    )(nv, zr, zb, *chans)
+    sum_exp = outs[0][:, :M]
+    compat = outs[1][:, :M] > 0.5
+    sel = [o[:, :M, :k1] for o in outs[2:]]
     return (sum_exp,) + tuple(sel) + (compat,)
 
 
-@functools.partial(jax.jit, static_argnums=(3,),
-                   static_argnames=("k1", "tile_p", "interpret", "raw",
-                                    "with_compat"))
-def fused_update_select_by_index(z_rb, pre, gm, cfg, k1: int = 8,
-                                 tile_p: int = 128,
-                                 interpret: bool = False,
-                                 raw: bool = False, n_valid=None,
-                                 with_compat: bool = None):
-    """Selection-only fused kernel: returns (sum_exp [P,M], w_sel [P,M,k1],
-    idx_sel [P,M,k1] int32, compat [P,M]).
-
-    Same selection semantics as fused_update_select (same picks, same
-    pruned/normalized weights), but payload channels are NOT extracted
-    in-kernel: the caller gathers them by idx_sel with take_along_axis.
-    Entries with w_sel == 0 carry idx 0 (callers must mask on the weight).
-    """
+def select_reference(z_rb, pre, gm, cfg, k1: int = 8, raw: bool = False,
+                     n_valid=None, with_compat: bool = None,
+                     with_lpw: bool = None):
+    """The plain XLA computation of ``fused_update_select``'s outputs
+    (filter/update.py's XLA branch): [P, M, F] log-weights, ``lax.top_k``
+    and gathers. Same arguments and return tuple; payloads of zero-weight
+    picks are arbitrary in both."""
+    from phdslam_tpu.filter.update import (detection_log_weights,
+                                           gather_selected)
     from phdslam_tpu.ops.linalg import safe_log
 
-    # dead-output elision: see fused_update_select
     if with_compat is None:
         with_compat = bool(cfg.gateBirths)
-
-    P0, F = pre.r.shape
+    if with_lpw is None:
+        with_lpw = cfg.particleWeighting == 2
     M = z_rb.shape[0]
-    lpw = jnp.maximum(safe_log(pre.pd) + safe_log(gm.w), NEG_LARGE)
-    chans = [pre.r, pre.bearing, lpw, pre.si00, pre.si01, pre.si11,
-             pre.log_det_s]
-    pad = (-P0) % tile_p
-    if pad:
-        chans = [jnp.pad(c, ((0, pad), (0, 0)),
-                         constant_values=NEG_LARGE if i == 2 else
-                         (1.0 if i in (3, 5) else 0.0))
-                 for i, c in enumerate(chans)]
-    P = P0 + pad
-    nv = jnp.full((1,), M, jnp.int32) if n_valid is None \
-        else jnp.asarray(n_valid, jnp.int32).reshape(1)
-
-    chan = pl.BlockSpec((tile_p, F), lambda i: (i, 0),
-                        memory_space=pltpu.VMEM)
-    out_mp = pl.BlockSpec((M, tile_p), lambda i: (0, i),
-                          memory_space=pltpu.VMEM)
-    out_mkp = pl.BlockSpec((M, k1, tile_p), lambda i: (0, 0, i),
-                           memory_space=pltpu.VMEM)
-    dtype = pre.r.dtype
-    outs = pl.pallas_call(
-        functools.partial(
-            _kernel_by_index, n_measure=M, k1=k1,
-            clutter_birth=float(cfg.clutterDensity + cfg.birthWeight),
-            min_weight=float(cfg.minFeatureWeight),
-            gate_threshold=float(cfg.gateThreshold), raw=raw,
-            with_compat=with_compat),
-        grid=(P // tile_p,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 2
-        + [chan] * 7,
-        out_specs=(out_mp, out_mkp, out_mkp, out_mp),
-        out_shape=(
-            jax.ShapeDtypeStruct((M, P), dtype),
-            jax.ShapeDtypeStruct((M, k1, P), dtype),
-            jax.ShapeDtypeStruct((M, k1, P), jnp.int32),
-            jax.ShapeDtypeStruct((M, P), dtype),
-        ),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=int(48e6)),
-        cost_estimate=pl.CostEstimate(
-            flops=(12 + 4 * k1) * P * M * F,
-            bytes_accessed=(7 * P * F + 4 * P * M * k1) * 4,
-            transcendentals=P * M * F),
-        interpret=interpret,
-    )(z_rb, nv, *chans)
-    sum_exp = jnp.transpose(outs[0], (1, 0))[:P0]           # [P, M]
-    w_sel = jnp.transpose(outs[1], (2, 0, 1))[:P0]          # [P, M, k1]
-    idx_sel = jnp.transpose(outs[2], (2, 0, 1))[:P0]        # [P, M, k1]
-    compat = jnp.transpose(outs[3], (1, 0))[:P0] > 0.5      # [P, M]
-    return sum_exp, w_sel, idx_sel, compat
-
-
-def sum_exp_reference(z_rb, z_valid, pre, gm, cfg):
-    """XLA reference path for the normalizer numerators (tests/fallback)."""
-    from phdslam_tpu.filter.update import detection_log_weights
-
-    lw = detection_log_weights(pre, gm, z_rb,
-                               jnp.zeros(z_rb.shape[0], jnp.int32),
+    n = M if n_valid is None else n_valid
+    z_valid = jnp.arange(M) < n
+    lw = detection_log_weights(pre, gm, z_rb, jnp.zeros((M,), jnp.int32),
                                z_valid, cfg)
-    return jnp.sum(jnp.exp(lw), axis=-1)
-
-
-def _kernel4_by_index(z_ref, r_ref, b_ref, lpw_ref, si00_ref, si01_ref,
-                      si11_ref, lds_ref,
-                      sum_ref, wsel_ref, idxsel_ref,
-                      *, n_measure: int, k1: int):
-    """4-D selection-only variant (see _kernel_by_index): per pick, the
-    winning raw detection value and its feature index; the caller gathers
-    the 14 payload channels (4 means via gains, 10 covariances) outside."""
-    r = r_ref[:, :]
-    b = b_ref[:, :]
-    base = lpw_ref[:, :] - LOG_2PI - 0.5 * lds_ref[:, :]
-    si00 = si00_ref[:, :]
-    si01 = si01_ref[:, :]
-    si11 = si11_ref[:, :]
-    tp, F = r.shape
-    iota = jax.lax.broadcasted_iota(jnp.int32, (tp, F), 1)
-    two_pi = 2.0 * math.pi
-
-    def one_measurement(mi, _):
-        ir = z_ref[mi, 0] - r
-        ib = z_ref[mi, 1] - b
-        ib = ib - two_pi * jnp.round(ib / two_pi)
-        dist = ir * ir * si00 + 2.0 * ir * ib * si01 + ib * ib * si11
-        dist = jnp.maximum(dist, 0.0)
-        e = jnp.exp(base - 0.5 * dist)
-        sum_ref[mi, :] = jnp.sum(e, axis=1)
-
-        wrem = e
-        for j in range(k1):
-            mval = jnp.max(wrem, axis=1)
-            hit = wrem == mval[:, None]
-            first = jnp.min(jnp.where(hit, iota, F), axis=1)
-            alive = mval > 0.0
-            wsel_ref[mi, j, :] = jnp.where(alive, mval, 0.0)
-            idxsel_ref[mi, j, :] = jnp.where(alive, first, 0)
-            wrem = jnp.where(iota == first[:, None], 0.0, wrem)
-        return 0
-
-    jax.lax.fori_loop(0, n_measure, one_measurement, 0)
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("k1", "tile_p", "interpret"))
-def fused_update_select4_by_index(z_rb, pre4, gm4, k1: int = 8,
-                                  tile_p: int = 128,
-                                  interpret: bool = False):
-    """Selection-only 4-D kernel: returns (sum_exp [P,M], w_sel [P,M,k1],
-    idx_sel [P,M,k1] int32) — raw (unnormalized) detection values; the
-    caller reconstructs means/covariances by gathering at idx_sel."""
-    from phdslam_tpu.ops.linalg import safe_log
-
-    P0, F = pre4.r.shape
-    M = z_rb.shape[0]
-    lpw = jnp.maximum(safe_log(pre4.pd) + safe_log(gm4.w), NEG_LARGE)
-    chans = [pre4.r, pre4.bearing, lpw, pre4.si00, pre4.si01, pre4.si11,
-             pre4.log_det_s]
-    pad = (-P0) % tile_p
-    if pad:
-        chans = [jnp.pad(ch, ((0, pad), (0, 0)),
-                         constant_values=NEG_LARGE if i == 2 else 0.0)
-                 for i, ch in enumerate(chans)]
-    P = P0 + pad
-
-    chan = pl.BlockSpec((tile_p, F), lambda i: (i, 0),
-                        memory_space=pltpu.VMEM)
-    out_mp = pl.BlockSpec((M, tile_p), lambda i: (0, i),
-                          memory_space=pltpu.VMEM)
-    out_mkp = pl.BlockSpec((M, k1, tile_p), lambda i: (0, 0, i),
-                           memory_space=pltpu.VMEM)
-    dtype = pre4.r.dtype
-    outs = pl.pallas_call(
-        functools.partial(_kernel4_by_index, n_measure=M, k1=k1),
-        grid=(P // tile_p,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] + [chan] * 7,
-        out_specs=(out_mp, out_mkp, out_mkp),
-        out_shape=(jax.ShapeDtypeStruct((M, P), dtype),
-                   jax.ShapeDtypeStruct((M, k1, P), dtype),
-                   jax.ShapeDtypeStruct((M, k1, P), jnp.int32)),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=int(48e6)),
-        cost_estimate=pl.CostEstimate(
-            flops=(20 + 4 * k1) * P * M * F,
-            bytes_accessed=(7 * P * F + 4 * P * M * k1) * 4,
-            transcendentals=P * M * F),
-        interpret=interpret,
-    )(z_rb, *chans)
-    sum_exp = jnp.transpose(outs[0], (1, 0))[:P0]
-    w_sel = jnp.transpose(outs[1], (2, 0, 1))[:P0]
-    idx_sel = jnp.transpose(outs[2], (2, 0, 1))[:P0]
-    return sum_exp, w_sel, idx_sel
-
-
-def _kernel4(z_ref, r_ref, b_ref, lpw_ref, si00_ref, si01_ref, si11_ref,
-             lds_ref, g0_ref, g1_ref, g2_ref, g3_ref, g4_ref, g5_ref,
-             g6_ref, g7_ref, m0_ref, m1_ref, m2_ref, m3_ref,
-             c0_ref, c1_ref, c2_ref, c3_ref, c4_ref, c5_ref, c6_ref,
-             c7_ref, c8_ref, c9_ref,
-             sum_ref, wsel_ref,
-             m0s_ref, m1s_ref, m2s_ref, m3s_ref,
-             c0s_ref, c1s_ref, c2s_ref, c3s_ref, c4s_ref, c5s_ref,
-             c6s_ref, c7s_ref, c8s_ref, c9s_ref,
-             *, n_measure: int, k1: int):
-    """4-D (dynamic map) raw selection: per-measurement detection masses +
-    unnormalized top-k1 candidates with updated means (Kalman gain
-    channels) and updated covariances (measurement-independent)."""
-    r = r_ref[:, :]
-    b = b_ref[:, :]
-    lpw = lpw_ref[:, :]
-    base = lpw - LOG_2PI - 0.5 * lds_ref[:, :]
-    si00 = si00_ref[:, :]
-    si01 = si01_ref[:, :]
-    si11 = si11_ref[:, :]
-    g = [g0_ref[:, :], g1_ref[:, :], g2_ref[:, :], g3_ref[:, :],
-         g4_ref[:, :], g5_ref[:, :], g6_ref[:, :], g7_ref[:, :]]
-    m = [m0_ref[:, :], m1_ref[:, :], m2_ref[:, :], m3_ref[:, :]]
-    c = [c0_ref[:, :], c1_ref[:, :], c2_ref[:, :], c3_ref[:, :],
-         c4_ref[:, :], c5_ref[:, :], c6_ref[:, :], c7_ref[:, :],
-         c8_ref[:, :], c9_ref[:, :]]
-    m_out = [m0s_ref, m1s_ref, m2s_ref, m3s_ref]
-    c_out = [c0s_ref, c1s_ref, c2s_ref, c3s_ref, c4s_ref, c5s_ref,
-             c6s_ref, c7s_ref, c8s_ref, c9s_ref]
-    tp, F = r.shape
-    iota = jax.lax.broadcasted_iota(jnp.int32, (tp, F), 1)
-    two_pi = 2.0 * math.pi
-
-    def one_measurement(mi, _):
-        ir = z_ref[mi, 0] - r
-        ib = z_ref[mi, 1] - b
-        ib = ib - two_pi * jnp.round(ib / two_pi)
-        dist = ir * ir * si00 + 2.0 * ir * ib * si01 + ib * ib * si11
-        dist = jnp.maximum(dist, 0.0)
-        e = jnp.exp(base - 0.5 * dist)
-        sum_ref[mi, :] = jnp.sum(e, axis=1)
-        md = [m[i] + g[2 * i] * ir + g[2 * i + 1] * ib for i in range(4)]
-
-        wrem = e
-        for j in range(k1):
-            mval = jnp.max(wrem, axis=1)
-            hit = wrem == mval[:, None]
-            first = jnp.min(jnp.where(hit, iota, F), axis=1)
-            onehot = iota == first[:, None]
-            pick = lambda ch: jnp.sum(jnp.where(onehot, ch, 0.0), axis=1)
-            wsel_ref[mi, j, :] = jnp.where(mval > 0.0, mval, 0.0)
-            for i in range(4):
-                m_out[i][mi, j, :] = pick(md[i])
-            for i in range(10):
-                c_out[i][mi, j, :] = pick(c[i])
-            wrem = jnp.where(onehot, 0.0, wrem)
-        return 0
-
-    jax.lax.fori_loop(0, n_measure, one_measurement, 0)
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("k1", "tile_p", "interpret"))
-def fused_update_select4(z_rb, pre4, gm4, k1: int = 8,
-                         tile_p: int = 128, interpret: bool = False):
-    """Raw 4-D selection. pre4: filter.update4.PreUpdate4; gm4:
-    Gaussian4DMixture. Returns (sum_exp [P,M], w_sel [P,M,k1],
-    mean_sel [P,4,M,k1], cov_sel [P,10,M,k1]) — unnormalized detection
-    values; padded/invalid measurement columns are garbage (caller masks).
-    """
-    from phdslam_tpu.ops.linalg import safe_log
-
-    P0, F = pre4.r.shape
-    M = z_rb.shape[0]
-    lpw = jnp.maximum(safe_log(pre4.pd) + safe_log(gm4.w), NEG_LARGE)
-    chans = ([pre4.r, pre4.bearing, lpw, pre4.si00, pre4.si01, pre4.si11,
-              pre4.log_det_s]
-             + [pre4.gain[:, k, :] for k in range(8)]
-             + [gm4.mean_channels[:, k, :] for k in range(4)]
-             + [pre4.cov_update[:, k, :] for k in range(10)])
-    pad = (-P0) % tile_p
-    if pad:
-        chans = [jnp.pad(ch, ((0, pad), (0, 0)),
-                         constant_values=NEG_LARGE if i == 2 else 0.0)
-                 for i, ch in enumerate(chans)]
-    P = P0 + pad
-
-    chan = pl.BlockSpec((tile_p, F), lambda i: (i, 0),
-                        memory_space=pltpu.VMEM)
-    out_mp = pl.BlockSpec((M, tile_p), lambda i: (0, i),
-                          memory_space=pltpu.VMEM)
-    out_mkp = pl.BlockSpec((M, k1, tile_p), lambda i: (0, 0, i),
-                           memory_space=pltpu.VMEM)
-    dtype = pre4.r.dtype
-    outs = pl.pallas_call(
-        functools.partial(_kernel4, n_measure=M, k1=k1),
-        grid=(P // tile_p,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] + [chan] * 29,
-        out_specs=(out_mp,) + (out_mkp,) * 15,
-        out_shape=(jax.ShapeDtypeStruct((M, P), dtype),)
-        + tuple(jax.ShapeDtypeStruct((M, k1, P), dtype)
-                for _ in range(15)),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=int(64e6)),
-        cost_estimate=pl.CostEstimate(
-            flops=(20 + 16 * k1) * P * M * F,
-            bytes_accessed=(29 * P * F + 16 * P * M * k1) * 4,
-            transcendentals=P * M * F),
-        interpret=interpret,
-    )(z_rb, *chans)
-    sum_exp = jnp.transpose(outs[0], (1, 0))[:P0]
-    w_sel = jnp.transpose(outs[1], (2, 0, 1))[:P0]
-    mean_sel = jnp.stack(
-        [jnp.transpose(o, (2, 0, 1))[:P0] for o in outs[2:6]], axis=1)
-    cov_sel = jnp.stack(
-        [jnp.transpose(o, (2, 0, 1))[:P0] for o in outs[6:16]], axis=1)
-    return sum_exp, w_sel, mean_sel, cov_sel
+    e = jnp.exp(lw)
+    sum_exp = jnp.sum(e, axis=-1)
+    if raw:
+        w_det = e
+    else:
+        w_det = e / (sum_exp + cfg.clutterDensity + cfg.birthWeight)[..., None]
+        w_det = jnp.where(w_det >= cfg.minFeatureWeight, w_det, 0.0)
+    w_sel, f_sel = jax.lax.top_k(w_det, k1)
+    mx, my, u00, u01, u11, lpw = gather_selected(pre, gm, z_rb, f_sel)
+    zeros = jnp.zeros_like(w_sel)
+    dist = -2.0 * (lw - safe_log(pre.pd)[:, None, :]
+                   - safe_log(gm.w)[:, None, :] + LOG_2PI
+                   + 0.5 * pre.log_det_s[:, None, :])
+    compat = jnp.any((dist < cfg.gateThreshold)
+                     & (pre.rclass == 1)[:, None, :], axis=-1)
+    return (sum_exp, w_sel, mx, my, u00, u01, u11,
+            lpw if with_lpw else zeros,
+            compat if with_compat else jnp.zeros_like(compat))

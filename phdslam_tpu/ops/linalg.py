@@ -1,6 +1,6 @@
 """Batched closed-form small-matrix algebra and Gaussian distances.
 
-TPU-native equivalent of the reference's device math library
+Array-program equivalent of the reference's device math library
 (``src/device_math.cuh``): everything here is a pure function over
 arbitrarily-batched arrays whose *trailing* dims are the matrix dims, so the
 same code serves scalar use, vmap over features, and [P, F, ...] batches.

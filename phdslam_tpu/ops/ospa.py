@@ -66,17 +66,18 @@ _THETA = 4.0     # eps reduction factor between scaling phases
 #: per-phase iteration budget, in multiples of n. With theta-scaling a
 #: phase needs ~n*(theta+1) bids (each bid raises one price by >= eps, and
 #: a phase only has to recover the ~n*theta*eps slack left by its
-#: predecessor), so 16n covers theta=4 with ~3x headroom; the measured
-#: counts in results/ospa_latency.json sit well below the cap.
+#: predecessor), so 16n covers theta=4 with ~3x headroom
+#: (scripts/ospa_latency.py checks the metric gap against the exact
+#: solution).
 _BIDS_PER_N = 16
 
 
 def _auction_assign(cost, max_iters: int = 0):
     """Jacobi (all-bidders-parallel) forward auction with eps-scaling for
-    square min-cost assignment under jit — the TPU-friendly formulation:
+    square min-cost assignment under jit — the data-parallel formulation:
     every unassigned row bids simultaneously, each column accepts its best
-    bid, so one iteration is a handful of [n, n] VPU ops instead of the
-    sequential one-bid-per-trip Gauss-Seidel form.
+    bid, so one iteration is a handful of [n, n] elementwise ops instead of
+    the sequential one-bid-per-trip Gauss-Seidel form.
 
     cost [n, n] with entries in [0, 1] (callers normalize by c**p).
     Returns owner[j] = row assigned to column j.

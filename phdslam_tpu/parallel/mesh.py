@@ -16,22 +16,23 @@ reductions cross devices each step:
      alternative (per-island local resampling + butterfly ppermute weight
      exchange) is implemented in parallel/island.py.
 
-Everything runs through the same `slam_step` used on one chip — sharding is
-expressed entirely with NamedSharding annotations, XLA inserts collectives —
-EXCEPT the measurement update, which `slam_step` runs under `shard_map` over
-this mesh (`pmesh`, filter.step._pshard): GSPMD cannot propagate a
-partitioning through a `pallas_call`'s opaque custom call, so the fused
-Pallas kernels must lower inside a manual (per-shard) computation to run
-per-shard instead of failing or replicating. The update is RNG-free and
-per-particle independent, so the manual region is bit-identical to the
-GSPMD form; prediction, weight normalization, and the global resample stay
-in GSPMD-land where XLA's collective insertion handles them.
+Everything runs through the same `slam_step` used on one card — sharding
+is expressed entirely with NamedSharding annotations, XLA inserts
+collectives — EXCEPT the measurement update when the kernels are on, which
+`slam_step` then runs under `shard_map` over this mesh (`pmesh`,
+filter.step._pshard): GSPMD cannot propagate a partitioning through a
+`pallas_call`'s opaque custom call, so the kernels run inside a manual
+(per-shard) computation. The update is RNG-free and per-particle
+independent, so the manual region is bit-identical to the GSPMD form;
+prediction, weight normalization, and the global resample stay in
+GSPMD-land where XLA's collective insertion handles them.
 
-On a non-TPU mesh the compiled Mosaic kernels cannot run; the entry points
-fall back to the XLA update path (usePallas=False) unless
-cfg.pallasInterpret asks for the Pallas code path in interpret mode — that
-is how the virtual-CPU-mesh dryrun exercises the exact shard_map-wrapped
-kernel path a real TPU mesh runs compiled.
+Whether the kernels run follows the mesh's platform through
+kernels.kernel_mode: compiled on a GPU mesh; on a CPU mesh the XLA update
+path, or interpret mode when cfg.pallasInterpret asks — that is how the
+virtual-CPU-mesh dryrun exercises the same shard_map-wrapped kernel path a
+GPU mesh runs compiled. The mesh is 1-D over the particle axis: the cards
+of one host are joined all to all, so no torus shape is needed.
 """
 
 from __future__ import annotations
@@ -46,12 +47,9 @@ PARTICLE_AXIS = "particles"
 
 
 def make_mesh(n_devices: int | None = None) -> Mesh:
+    """A 1-D particle-axis mesh over the first n_devices default-backend
+    devices (all of them when None). Raises when too few exist."""
     devs = jax.devices()
-    if n_devices is not None and len(devs) < n_devices:
-        # fall back to the (possibly virtual-multi-device) CPU backend —
-        # needed where an experimental TPU plugin pins the default backend
-        # to a single chip regardless of JAX_PLATFORMS
-        devs = jax.local_devices(backend="cpu")
     if n_devices is not None:
         if len(devs) < n_devices:
             raise RuntimeError(
@@ -93,23 +91,20 @@ def replicate_measurements(z: Measurements, mesh: Mesh) -> Measurements:
 
 
 def resolve_pallas(cfg, mesh: Mesh):
-    """Resolve (cfg, pmesh) for a sharded entry point.
+    """Resolve (cfg, pmesh) for a sharded entry point from the mesh's
+    platform (kernels.kernel_mode): kernels on -> the update runs under
+    shard_map (pmesh=mesh) so the kernel calls run per shard, and the cfg
+    carries the mesh's platform (cfg.kernelPlatform) so the update's own
+    kernel_mode calls decide the same way whatever the process default
+    backend; kernels off -> usePallas=False and the XLA update path, which
+    GSPMD shards."""
+    from phdslam_tpu.kernels import kernel_mode
 
-    TPU mesh -> Pallas stays on and the update runs under shard_map
-    (pmesh=mesh) so the kernel custom calls lower per-shard. Non-TPU mesh
-    -> Pallas off (XLA fallback path, GSPMD shards it fine) unless
-    cfg.pallasInterpret, which keeps the Pallas code path in interpret
-    mode under the same shard_map wrapping (testing only; slow)."""
-    on_tpu = mesh.devices.flat[0].platform in ("tpu",)
-    if on_tpu and cfg.usePallas and not cfg.pallasInterpret:
-        # compiled kernels follow the MESH's platform, not the process
-        # default backend (which may be CPU when AOT-lowering for TPU)
-        cfg = cfg.replace(pallasForce=True)
-    if not on_tpu and not cfg.pallasInterpret:
-        cfg = cfg.replace(usePallas=False)
-    pmesh = mesh if (cfg.usePallas and (on_tpu or cfg.pallasInterpret)) \
-        else None
-    return cfg, pmesh
+    platform = mesh.devices.flat[0].platform
+    use_kernel, _ = kernel_mode(cfg, platform)
+    if not use_kernel:
+        return cfg.replace(usePallas=False), None
+    return cfg.replace(kernelPlatform=platform), mesh
 
 
 def sharded_run_scan(cfg, mesh: Mesh, with_log_state: bool = False):
@@ -182,8 +177,7 @@ def sharded_step(cfg, mesh: Mesh):
     from phdslam_tpu.filter.step import slam_step
 
     rep = replicated(mesh)
-    # Pallas kernels follow the mesh's devices, not the process default
-    # backend (a TPU plugin can be the default while this mesh is CPU)
+    # kernels follow the mesh's devices, not the process default backend
     cfg, pmesh = resolve_pallas(cfg, mesh)
 
     def step(state, key, control, z, dt, do_predict):

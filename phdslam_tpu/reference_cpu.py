@@ -4,7 +4,7 @@ This is the correctness anchor the reference repo lacks (its `scphd_cpu.cpp`
 is an empty stub, src/scphd_cpu.cpp:1-2). It follows the CUDA algorithm's
 semantics exactly — dynamic per-particle Gaussian lists, host-style control
 flow — with no padding, masking, or top-k approximations. Used by:
-  * unit/regression tests as the oracle for the fixed-shape TPU path,
+  * unit/regression tests as the oracle for the fixed-shape JAX path,
   * BASELINE config 1 ("CPU reference ... 64 particles"),
   * the speedup denominator in bench.py.
 
@@ -350,7 +350,7 @@ def _greedy_merge(w, mu, P, cfg: SlamConfig):
 # MIXED static+dynamic model (featureModel == 2; DYNAMIC == 1 is the
 # dynamic-map-only special case): dynamic-shape float64 oracle of
 # phdUpdateKernelMixed (src/phdfilter.cu:2323-2635) — the independent
-# anchor for the fixed-shape TPU path in filter/update4.py.
+# anchor for the fixed-shape JAX path in filter/update4.py.
 # ---------------------------------------------------------------------------
 
 def _birth4(pose, z, cfg):
@@ -639,7 +639,7 @@ def update_mixed(slam: CpuSlam, z: np.ndarray, cfg: SlamConfig,
 # CPHD (filterType == 1): dynamic-shape float64 oracle of the reference's
 # dormant CPHD pipeline (src/phdfilter.cu.bak). Everything runs per
 # particle with plain Python/NumPy control flow — the independent anchor
-# for the fixed-shape TPU path in filter/cphd.py.
+# for the fixed-shape JAX path in filter/cphd.py.
 # ---------------------------------------------------------------------------
 
 def _logsumexp(a, axis=None):

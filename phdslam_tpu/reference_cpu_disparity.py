@@ -1,6 +1,6 @@
 """CPU reference for the monocular SC-PHD disparity pipeline: a faithful,
 dynamic-shape NumPy implementation (float64), the independent correctness
-anchor for the fixed-shape TPU path in filter/disparity.py.
+anchor for the fixed-shape JAX path in filter/disparity.py.
 
 Follows the reference's disparity pipeline semantics
 (/root/reference/src/phdfilter.cu:4520-5216) with host-style control flow —
@@ -24,7 +24,7 @@ dynamic per-particle feature lists, no padding/masking/top-k:
   sample           sampleGaussiansKernel (:4250-4304): redraw each merged
                    Gaussian as a particle cloud, disparity -> world
 
-Because the cloud resampling draws fresh randoms, parity with the TPU path
+Because the cloud resampling draws fresh randoms, parity with the JAX path
 is statistical (same-scenario tracking error / cardinality), not bitwise —
 same situation as the reference's own GPU nondeterminism.
 """

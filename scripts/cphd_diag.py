@@ -21,17 +21,16 @@ import json
 import os
 import sys
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jaxcache-tpu")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from phdslam_tpu.utils import ensure_backend
+from phdslam_tpu.utils import configure_compile_cache
 
-ensure_backend()
+configure_compile_cache()
 
 from phdslam_tpu.config import load_config  # noqa: E402
-from eval_baselines import load_ackerman, run_tpu  # noqa: E402
+from eval_baselines import load_ackerman, run_engine  # noqa: E402
 
 
 def wrap(a):
@@ -56,7 +55,7 @@ def main():
         cfg = cfg.replace(**{k: cast(float(v))})
         tag += f"_{k}{v}"
 
-    final, poses, ms_step, la = run_tpu(cfg, ms, noisy, T, with_log=True)
+    final, poses, ms_step, la = run_engine(cfg, ms, noisy, T, with_log=True)
 
     cn = np.asarray(la.cardinality)                       # [T, N+1]
     pmf = np.exp(cn - cn.max(axis=1, keepdims=True))

@@ -9,9 +9,6 @@ selectTopK, usePallas, mergeCompactK, minSeparation, ... — can never drift
 from what a user gets by running the shipped config.
 """
 import dataclasses
-import sys
-
-sys.path.insert(0, "/root/repo")
 
 import bench
 from phdslam_tpu.config import load_config

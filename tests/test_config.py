@@ -1,13 +1,23 @@
 """Config-system tests: the parser must accept the reference cfg verbatim."""
 
 import math
+import os
+
+import pytest
 
 from phdslam_tpu.config import SlamConfig, load_config, parse_config_text
+from phdslam_tpu.utils import REPO_ROOT
 
-REF_CFG = "/root/reference/cfg/config.cfg"
+# the reference program's own cfg/config.cfg, from a checkout of it
+REF_CFG = os.path.join(os.environ.get("CUDA_PHDSLAM_DIR", ""), "cfg",
+                       "config.cfg")
+SHIPPED_CFG = os.path.join(REPO_ROOT, "cfg", "ackerman_synth.cfg")
 
 
 def test_reference_config_verbatim():
+    if not os.path.exists(REF_CFG):
+        pytest.skip("the reference program's cfg/config.cfg is not found "
+                    "(set CUDA_PHDSLAM_DIR to its checkout)")
     cfg = load_config(REF_CFG)
     # values straight from cfg/config.cfg
     assert cfg.motionType == 1
@@ -38,7 +48,8 @@ def test_reference_config_verbatim():
 
 
 def test_derived_clutter_density():
-    cfg = load_config(REF_CFG)
+    cfg = load_config(SHIPPED_CFG)
+    assert cfg.clutterRate == 20.0 and cfg.maxRange == 10.0
     expect = cfg.clutterRate / (2 * cfg.maxBearing * cfg.maxRange)
     assert abs(cfg.clutterDensity - expect) < 1e-9
     # replace() re-derives

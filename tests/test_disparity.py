@@ -1,6 +1,8 @@
 """SC-PHD disparity pipeline tests: camera transforms, Gaussian fitting and
 sampling round trips, and an end-to-end monocular tracking smoke test."""
 
+import os
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -8,11 +10,14 @@ import pytest
 
 from phdslam_tpu.config import load_config
 from phdslam_tpu.models import camera as cam
+from phdslam_tpu.utils import REPO_ROOT
+
+DISP_CFG = os.path.join(REPO_ROOT, "cfg", "disparity_synth.cfg")
 
 
 @pytest.fixture(scope="module")
 def disp_cfg():
-    return load_config("/root/reference/cfg/config.cfg").replace(
+    return load_config(DISP_CFG).replace(
         n_particles=8, maxFeatures=8, maxMeasurements=8,
         particlesPerFeature=32, birthWeight=1e-2, pd=0.95,
         minSeparation=16.0, ax=0.01, ay=0.01, az=0.01,
@@ -153,7 +158,7 @@ def test_disparity_tracking_stationary_camera(rng):
     from phdslam_tpu.filter.disparity import DisparityState, disparity_step
     from phdslam_tpu.models.camera import world_to_disparity
 
-    cfg = load_config("/root/reference/cfg/config.cfg").replace(
+    cfg = load_config(DISP_CFG).replace(
         n_particles=32, maxFeatures=32, maxMeasurements=8, nSteps=-1)
     # place landmarks by sampling image coords and backprojecting — always
     # visible regardless of the config's camera intrinsics

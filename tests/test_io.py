@@ -1,17 +1,22 @@
-"""Loader and log-format tests against the shipped reference datasets."""
+"""Loader and log-format tests against the committed seed dataset
+(data/ackerman_synth, written by scripts/gen_ackerman_data.py)."""
+
+import os
 
 import numpy as np
 
 from phdslam_tpu.io import loaders, logs
+from phdslam_tpu.utils import REPO_ROOT
+
+SEED = os.path.join(REPO_ROOT, "data", "ackerman_synth")
 
 
 def test_load_ackerman_measurements():
-    sets = loaders.load_measurements(
-        "/root/reference/matlab/measurements_synth_ackerman.txt")
+    sets = loaders.load_measurements(os.path.join(SEED, "measurements.txt"))
     assert len(sets) == 331
-    assert len(sets[0].ranges) == 28
-    assert abs(sets[0].ranges[0] - 9.476848) < 1e-6
-    assert abs(sets[0].bearings[0] + 2.299487) < 1e-6
+    assert len(sets[0].ranges) == 33
+    assert abs(sets[0].ranges[0] - 2.260025) < 1e-6
+    assert abs(sets[0].bearings[0] + 0.268964) < 1e-6
     # some shipped measurements are negative-range (Gaussian noise on
     # near-zero ranges) — the loaders must pass them through untouched
     allr = np.concatenate([s.ranges for s in sets])
@@ -19,16 +24,19 @@ def test_load_ackerman_measurements():
 
 
 def test_load_cv_measurements():
+    from phdslam_tpu.config import load_config
+
+    cfg = load_config(os.path.join(REPO_ROOT, "cfg", "cv_synth.cfg"))
     sets = loaders.load_measurements(
-        "/root/reference/matlab/measurements_synth_cv.txt")
-    assert len(sets) == 1000
+        os.path.join(cfg.dataDirectory, "measurements.txt"))
+    assert len(sets) == 331
 
 
 def test_load_controls():
-    c = loaders.load_controls("/root/reference/matlab/controls_synth.txt")
-    assert c.shape == (999, 2)
-    assert abs(c[0, 0] - 2.77796) < 1e-5
-    assert abs(c[0, 1] + 0.186915) < 1e-6
+    c = loaders.load_controls(os.path.join(SEED, "controls.txt"))
+    assert c.shape == (330, 2)
+    assert abs(c[0, 0] - 1.44792) < 1e-5
+    assert abs(c[0, 1] - 0.250593) < 1e-6
 
 
 def test_load_controls_comma_separated(tmp_path):
@@ -44,12 +52,11 @@ def test_load_timestamps_missing():
 
 
 def test_pad_measurement_sets():
-    sets = loaders.load_measurements(
-        "/root/reference/matlab/measurements_synth_ackerman.txt")
+    sets = loaders.load_measurements(os.path.join(SEED, "measurements.txt"))
     rb, labels, valid = loaders.pad_measurement_sets(sets[:10], 64)
     assert rb.shape == (10, 64, 2)
-    assert valid[0].sum() == 28
-    assert (rb[0, 28:] == 0).all()
+    assert valid[0].sum() == 33
+    assert (rb[0, 33:] == 0).all()
 
 
 def test_state_estimate_log_roundtrip(tmp_path):

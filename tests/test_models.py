@@ -3,30 +3,40 @@ reproduction from the shipped dataset."""
 
 import pytest
 
+import os
+
 import numpy as np
 import jax.numpy as jnp
-from scipy.io import loadmat
 
 from phdslam_tpu.config import load_config
+from phdslam_tpu.io.loaders import load_trajectory
 from phdslam_tpu.models import motion, measurement
+from phdslam_tpu.utils import REPO_ROOT
 
-CFG = load_config("cfg/ackerman_synth.cfg")
+CFG = load_config(os.path.join(REPO_ROOT, "cfg", "ackerman_synth.cfg"))
 
 
 def test_ackerman_reproduces_ground_truth():
-    """Noiseless Ackerman prediction with the .mat's true controls must
-    reproduce sim.traj exactly (dt=1, Victoria-Park params)."""
-    sim = loadmat("/root/reference/matlab/simData2_ackerman.mat")["sim"][0, 0]
-    traj = sim["traj"]
-    us = np.array([c["u"].ravel() for c in sim["control"][0]])
-    pose = jnp.asarray(
-        np.concatenate([traj[:, 0], np.zeros(3)]).astype(np.float32))[None]
+    """Noiseless Ackerman prediction with the seed scenario's true controls
+    must reproduce its committed truth (data/ackerman_synth/traj.txt;
+    scripts/gen_ackerman_data.py: seed 2, shifted to the cfg's start)."""
+    from phdslam_tpu.simdata import make_scenario
+
+    sc = make_scenario(np.random.default_rng(2), n_landmarks=80,
+                       n_steps=330)
+    traj = load_trajectory(os.path.join(REPO_ROOT, "data", "ackerman_synth",
+                                        "traj.txt"))
+    np.testing.assert_allclose(traj[:, :2], sc.traj[:, :2] + [0.0, -15.0],
+                               atol=1e-5)
+    us = sc.controls_true
+    pose = jnp.asarray(np.concatenate([traj[0, :3], np.zeros(3)]),
+                       jnp.float32)[None]
     errs = []
     for t in range(50):
         pose = motion.ackerman_predict(
             pose, (jnp.float32(us[t, 0]), jnp.float32(us[t, 1])),
             jnp.zeros((1, 2)), CFG, jnp.float32(1.0))
-        errs.append(np.linalg.norm(np.asarray(pose[0, :2]) - traj[:2, t + 1]))
+        errs.append(np.linalg.norm(np.asarray(pose[0, :2]) - traj[t + 1, :2]))
     assert max(errs) < 1e-3
 
 

@@ -9,6 +9,7 @@
   global map
 """
 
+import os
 import re
 
 import jax
@@ -17,6 +18,9 @@ import numpy as np
 import pytest
 
 from phdslam_tpu.filter.state import Measurements, SlamState
+from phdslam_tpu.utils import REPO_ROOT
+
+DISP_CFG = os.path.join(REPO_ROOT, "cfg", "disparity_synth.cfg")
 
 COLLECTIVES = ("all-gather", "all-to-all", "all-reduce",
                "collective-permute", "reduce-scatter")
@@ -130,7 +134,7 @@ def test_disparity_path_hlo_shards_and_normalizes(mesh8):
     from phdslam_tpu.parallel.mesh import (sharded_disparity_step,
                                            state_shardings)
 
-    cfg = load_config("/root/reference/cfg/config.cfg").replace(
+    cfg = load_config(DISP_CFG).replace(
         n_particles=16, maxFeatures=8, maxMeasurements=8,
         particlesPerFeature=32, usePallas=False)
     sd = DisparityState.create(cfg)

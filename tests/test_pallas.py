@@ -1,8 +1,9 @@
-"""Fused update/selection kernel parity tests.
+"""The two Triton kernels (kernels/) against the plain XLA computation.
 
-The kernel logic runs in Pallas interpret mode on CPU (every CI run); the
-compiled-Mosaic path is exercised by scripts/tpu_kernel_check.py on the real
-chip (also asserts the full phd_update_static outputs match between paths).
+CPU tests run the kernels in Pallas interpret mode at tiny shapes. Tests
+marked `gpu` run them compiled and skip without a card; chip_smoke.py runs
+them on the card (its gpu-tests phase), beside its parity checks at the
+dense widths.
 """
 
 import numpy as np
@@ -10,11 +11,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
+import chip_smoke
 
 
-pytestmark = pytest.mark.slow  # heavy e2e/interpret tests; unit core excludes via -m 'not slow'
-
-def _problem(tiny_cfg, rng, P=128, F=128, M=8):
+def _problem(tiny_cfg, rng, P=7, F=24, M=6):
     from phdslam_tpu.filter.state import Gaussian2DMixture
 
     cfg = tiny_cfg.replace(n_particles=P, maxFeatures=F, maxMeasurements=M,
@@ -33,517 +33,299 @@ def _problem(tiny_cfg, rng, P=128, F=128, M=8):
     return cfg, gm, pose, z_rb, z_valid
 
 
-def _xla_selection(cfg, gm, pose, z_rb, z_valid, k1):
-    """The XLA path's equivalents of the kernel outputs."""
-    from phdslam_tpu.filter.update import (detection_log_weights,
-                                           kalman_preupdate)
-    from phdslam_tpu.ops.linalg import safe_log, wrap_angle
-
-    pre = kalman_preupdate(pose, gm, cfg)
-    M = z_rb.shape[0]
-    z_label = jnp.zeros((M,), jnp.int32)
-    lw = detection_log_weights(pre, gm, z_rb, z_label, z_valid, cfg)
-    sum_exp = jnp.sum(jnp.exp(lw), axis=-1)
-    g_single = lw - safe_log(pre.pd)[:, None, :] - safe_log(gm.w)[:, None, :]
-    dist = -2.0 * (g_single + 1.8378770664093453
-                   + 0.5 * pre.log_det_s[:, None, :])
-    compat = jnp.any((dist < cfg.gateThreshold)
-                     & (pre.rclass == 1)[:, None, :], axis=-1)
-    norm = sum_exp + cfg.clutterDensity + cfg.birthWeight
-    w_det = jnp.exp(lw) / norm[..., None]
-    w_det = jnp.where(w_det >= cfg.minFeatureWeight, w_det, 0.0)
-    w_sel, f_sel = jax.lax.top_k(w_det, k1)
-    P = pose.shape[0]
-    take = lambda a: jnp.take_along_axis(
-        a[:, None, :], jnp.broadcast_to(f_sel, (P, M, k1)), axis=2)
-    ir = z_rb[None, :, None, 0] - take(pre.r)
-    ib = wrap_angle(z_rb[None, :, None, 1] - take(pre.bearing))
-    mx = take(gm.mx) + take(pre.g00) * ir + take(pre.g01) * ib
-    my = take(gm.my) + take(pre.g10) * ir + take(pre.g11) * ib
-    return pre, sum_exp, compat, w_sel, mx, my, take(pre.u00), take(pre.u11)
+# ---------------------------------------------------------------- select
 
 
-@pytest.mark.parametrize("k1", [4, 8])
-def test_fused_update_select_interpret_matches_xla(tiny_cfg, rng, k1):
-    from phdslam_tpu.kernels.preupdate_pallas import fused_update_select
-
-    cfg, gm, pose, z_rb, z_valid = _problem(tiny_cfg, rng)
-    pre, sum_ref, compat_ref, w_ref, mx_ref, my_ref, u00_ref, u11_ref = \
-        _xla_selection(cfg, gm, pose, z_rb, z_valid, k1)
-    (sum_exp, w_sel, mx_sel, my_sel, u00_sel, u01_sel, u11_sel, lpw_sel,
-     compat) = fused_update_select(z_rb, pre, gm, cfg, k1=k1,
-                                   interpret=True)
-
-    np.testing.assert_allclose(np.asarray(sum_exp), np.asarray(sum_ref),
-                               rtol=1e-4, atol=1e-6)
-    np.testing.assert_array_equal(np.asarray(compat), np.asarray(compat_ref))
-    # selected weights are a set per (p, m); sort to ignore tie order
-    np.testing.assert_allclose(np.sort(np.asarray(w_sel), axis=-1),
-                               np.sort(np.asarray(w_ref), axis=-1),
-                               rtol=1e-4, atol=1e-7)
-    # weight-weighted moments match regardless of pick order
-    for got, ref in ((mx_sel, mx_ref), (my_sel, my_ref),
-                     (u00_sel, u00_ref), (u11_sel, u11_ref)):
-        np.testing.assert_allclose(
-            np.sum(np.asarray(w_sel) * np.asarray(got), axis=-1),
-            np.sum(np.asarray(w_ref) * np.asarray(ref), axis=-1),
-            rtol=2e-4, atol=1e-6)
-
-
-def _patch_pallas_interpret(monkeypatch):
-    """Force every Pallas kernel entry point into interpret mode and spoof
-    the backend, so the kernel branches run (and are checked) on CPU."""
-    import phdslam_tpu.kernels.merge_pallas as MK
-    import phdslam_tpu.kernels.preupdate_pallas as K
-
-    for mod, name in ((K, "fused_update_select"),
-                      (K, "fused_update_select_by_index"),
-                      (K, "fused_update_select4"),
-                      (K, "fused_update_select4_by_index"),
-                      (MK, "greedy_merge_pallas"),
-                      (MK, "greedy_merge4_pallas")):
-        orig = getattr(mod, name)
-        monkeypatch.setattr(
-            mod, name,
-            (lambda o: lambda *a, **kw: o(*a, **{**kw, "interpret": True})
-             )(orig))
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-
-
+@pytest.mark.parametrize("n_valid", [None, 4])
 @pytest.mark.parametrize("raw", [False, True])
-def test_select_by_index_matches_payload_kernel(tiny_cfg, rng, raw):
-    """The by-index kernel must make the SAME picks as the payload kernel
-    (identical weights), and the outside gather must reconstruct the same
-    payload channels for every live pick."""
-    from phdslam_tpu.filter.update import gather_selected, kalman_preupdate
-    from phdslam_tpu.kernels.preupdate_pallas import (
-        fused_update_select, fused_update_select_by_index)
-
-    cfg, gm, pose, z_rb, z_valid = _problem(tiny_cfg, rng)
-    pre = kalman_preupdate(pose, gm, cfg)
-    k1 = 4
-    # request the full outputs explicitly: lpw/compat are zero-filled by
-    # the dead-output elision when the config doesn't consume them
-    (sum_a, w_a, mx_a, my_a, u00_a, u01_a, u11_a, lpw_a,
-     compat_a) = fused_update_select(z_rb, pre, gm, cfg, k1=k1, raw=raw,
-                                     interpret=True,
-                                     with_compat=True, with_lpw=True)
-    sum_b, w_b, idx, compat_b = fused_update_select_by_index(
-        z_rb, pre, gm, cfg, k1=k1, raw=raw, interpret=True,
-        with_compat=True)
-    (mx_b, my_b, u00_b, u01_b, u11_b, lpw_b) = gather_selected(
-        pre, gm, z_rb, idx)
-
-    np.testing.assert_array_equal(np.asarray(sum_a), np.asarray(sum_b))
-    np.testing.assert_array_equal(np.asarray(compat_a),
-                                  np.asarray(compat_b))
-    np.testing.assert_array_equal(np.asarray(w_a), np.asarray(w_b))
-    live = np.asarray(w_a) > 0
-    for a, b in ((mx_a, mx_b), (my_a, my_b), (u00_a, u00_b),
-                 (u01_a, u01_b), (u11_a, u11_b), (lpw_a, lpw_b)):
-        np.testing.assert_allclose(np.asarray(a)[live],
-                                   np.asarray(b)[live],
-                                   rtol=1e-6, atol=1e-6)
+@pytest.mark.parametrize("k1", [4, 8])
+def test_select_interpret_matches_reference(k1, raw, n_valid):
+    """Odd P, F padded 24 -> 32, M padded 6 -> 8; partial n_valid zeroes
+    the trailing measurement columns."""
+    chip_smoke.check_select(7, 24, 6, k1, raw, n_valid, interpret=True)
 
 
-def test_select4_by_index_matches_payload_kernel(tiny_cfg, rng):
-    from phdslam_tpu.filter.state import Gaussian4DMixture
-    from phdslam_tpu.filter.update4 import (gather_selected4,
-                                            kalman_preupdate4)
-    from phdslam_tpu.kernels.preupdate_pallas import (
-        fused_update_select4, fused_update_select4_by_index)
-
-    cfg, _, pose, z_rb, z_valid = _problem(tiny_cfg, rng)
-    P = pose.shape[0]
-    F4 = 64
-    w4 = (rng.uniform(size=(P, F4)) < 0.4) * rng.uniform(0.1, 1.0, (P, F4))
-    gm4 = Gaussian4DMixture.empty((P,), F4)
-    mean4 = np.zeros((P, 4, F4), np.float32)
-    mean4[:, 0] = rng.uniform(-8, 8, (P, F4))
-    mean4[:, 1] = rng.uniform(-8, 8, (P, F4))
-    mean4[:, 2:] = rng.uniform(-0.5, 0.5, (P, 2, F4))
-    gm4 = Gaussian4DMixture(w=jnp.asarray(w4, jnp.float32),
-                            mean_channels=jnp.asarray(mean4),
-                            cov_channels=jnp.asarray(
-                                np.asarray(gm4.cov_channels) * 0.3))
-    pre4 = kalman_preupdate4(pose, gm4, cfg)
-    k1 = 4
-    sum_a, w_a, mean_a, cov_a = fused_update_select4(
-        z_rb, pre4, gm4, k1=k1, interpret=True)
-    sum_b, w_b, idx = fused_update_select4_by_index(
-        z_rb, pre4, gm4, k1=k1, interpret=True)
-    mean_b, cov_b = gather_selected4(pre4, gm4, z_rb, idx)
-
-    np.testing.assert_array_equal(np.asarray(sum_a), np.asarray(sum_b))
-    np.testing.assert_array_equal(np.asarray(w_a), np.asarray(w_b))
-    live = np.asarray(w_a) > 0                                 # [P,M,k1]
-    live_m = np.broadcast_to(live[:, None], np.asarray(mean_a).shape)
-    live_c = np.broadcast_to(live[:, None], np.asarray(cov_a).shape)
-    np.testing.assert_allclose(np.asarray(mean_a)[live_m],
-                               np.asarray(mean_b)[live_m],
-                               rtol=1e-6, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(cov_a)[live_c],
-                               np.asarray(cov_b)[live_c],
-                               rtol=1e-6, atol=1e-6)
-
-
-@pytest.mark.parametrize("by_index", [False, True])
-def test_full_update_partial_measurements(tiny_cfg, rng, monkeypatch,
-                                          by_index):
-    """Dynamic measurement count: with only k of M measurement slots valid,
-    the kernel's n_valid early-exit (zeroed trailing columns) must still
-    match the XLA branch exactly."""
-    import phdslam_tpu.filter.update as U
-
-    cfg, gm, pose, z_rb, z_valid = _problem(tiny_cfg, rng)
-    cfg = cfg.replace(selectByIndex=by_index)
-    M = z_rb.shape[0]
-    z_valid = jnp.asarray(np.arange(M) < 3)
-    z_label = jnp.zeros((M,), jnp.int32)
-    res_xla = U.phd_update_static(pose, gm, z_rb, z_label, z_valid, cfg)
-
-    _patch_pallas_interpret(monkeypatch)
-    res_pal = U.phd_update_static(pose, gm, z_rb, z_label, z_valid, cfg)
-
-    np.testing.assert_allclose(np.asarray(res_pal.log_weight_delta),
-                               np.asarray(res_xla.log_weight_delta),
-                               rtol=2e-4, atol=1e-5)
-    np.testing.assert_allclose(
-        np.sort(np.asarray(res_pal.map_out.w), axis=-1),
-        np.sort(np.asarray(res_xla.map_out.w), axis=-1),
-        rtol=1e-3, atol=1e-6)
-    # det_mass columns beyond the valid count must be exactly zero
-    np.testing.assert_array_equal(
-        np.asarray(res_pal.det_mass)[:, 3:], 0.0)
-
-
-@pytest.mark.parametrize("by_index", [False, True])
-def test_full_update_pallas_vs_xla_interpret(tiny_cfg, rng, monkeypatch,
-                                             by_index):
-    """phd_update_static's kernel branch (forced, interpret mode) must match
-    its XLA branch bit-for-near on the same inputs — in both selection
-    modes (in-kernel payload extraction and by-index + outside gathers)."""
-    import phdslam_tpu.filter.update as U
-
-    cfg, gm, pose, z_rb, z_valid = _problem(tiny_cfg, rng)
-    cfg = cfg.replace(selectByIndex=by_index)
-    z_label = jnp.zeros((z_rb.shape[0],), jnp.int32)
-    res_xla = U.phd_update_static(pose, gm, z_rb, z_label, z_valid, cfg)
-
-    _patch_pallas_interpret(monkeypatch)
-    res_pal = U.phd_update_static(pose, gm, z_rb, z_label, z_valid, cfg)
-
-    np.testing.assert_allclose(np.asarray(res_pal.log_weight_delta),
-                               np.asarray(res_xla.log_weight_delta),
-                               rtol=2e-4, atol=1e-5)
-    np.testing.assert_allclose(
-        np.sort(np.asarray(res_pal.map_out.w), axis=-1),
-        np.sort(np.asarray(res_xla.map_out.w), axis=-1),
-        rtol=1e-3, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(res_pal.map_out.w).sum(-1),
-                               np.asarray(res_xla.map_out.w).sum(-1),
-                               rtol=2e-4, atol=1e-5)
-
-
-def test_merge_pallas_interpret_matches_xla(tiny_cfg, rng):
-    """The VMEM merge kernel must reproduce greedy_merge_channels
-    (metric 0) exactly — same picks, same moment-matched outputs."""
-    from phdslam_tpu.kernels.merge_pallas import greedy_merge_pallas
-    from phdslam_tpu.ops.gm import greedy_merge_channels
-
-    P, K, F = 128, 160, 64
-    w = (rng.uniform(size=(P, K)) < 0.6) * rng.uniform(0.01, 2.0, (P, K))
-    mx = rng.uniform(-20, 20, (P, K))
-    my = rng.uniform(-20, 20, (P, K))
-    c00 = rng.uniform(0.05, 1.5, (P, K))
-    c11 = rng.uniform(0.05, 1.5, (P, K))
-    c01 = 0.4 * np.sqrt(c00 * c11) * rng.uniform(-1, 1, (P, K))
-    args = [jnp.asarray(a, jnp.float32) for a in (w, mx, my, c00, c01, c11)]
-
-    ref = greedy_merge_channels(*args, 4.0, F, metric=0)
-    got = greedy_merge_pallas(*args, 4.0, F, interpret=True)
-    for name, g, r in zip(("w", "mx", "my", "c00", "c01", "c11"), got, ref):
-        np.testing.assert_allclose(np.asarray(g), np.asarray(r),
-                                   rtol=1e-5, atol=1e-6, err_msg=name)
-
-
-def test_merge4_pallas_interpret_matches_xla(rng):
-    """The 4-D VMEM merge kernel vs filter.update4.greedy_merge4."""
-    from phdslam_tpu.filter.update4 import greedy_merge4
-    from phdslam_tpu.kernels.merge_pallas import greedy_merge4_pallas
-
-    P, K, F = 128, 96, 48
-    w = (rng.uniform(size=(P, K)) < 0.6) * rng.uniform(0.01, 2.0, (P, K))
-    mean = rng.uniform(-15, 15, (P, 4, K))
-    # SPD covariances: diag-dominant random symmetric channels
-    diag = rng.uniform(0.2, 1.5, (P, 4, K))
-    off = 0.1 * rng.uniform(-1, 1, (P, 6, K))
-    cov = np.stack([diag[:, 0], off[:, 0], off[:, 1], off[:, 2],
-                    diag[:, 1], off[:, 3], off[:, 4],
-                    diag[:, 2], off[:, 5], diag[:, 3]], axis=1)
-    args = (jnp.asarray(w, jnp.float32), jnp.asarray(mean, jnp.float32),
-            jnp.asarray(cov, jnp.float32))
-
-    rw, rm, rc = greedy_merge4(*args, 4.0, F, use_pallas=False)
-    gw, gm_, gc = greedy_merge4_pallas(*args, 4.0, F, interpret=True)
-    np.testing.assert_allclose(np.asarray(gw), np.asarray(rw),
-                               rtol=1e-5, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(gm_), np.asarray(rm),
-                               rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(gc), np.asarray(rc),
-                               rtol=1e-4, atol=1e-5)
-
-
-def test_merge3_pallas_interpret_matches_xla(rng):
-    """The 3-D VMEM merge kernel vs ops.gm.greedy_merge_channels3."""
-    from phdslam_tpu.kernels.merge_pallas import greedy_merge3_pallas
-    from phdslam_tpu.ops.gm import greedy_merge_channels3
-
-    P, K, F = 128, 96, 48
-    w = (rng.uniform(size=(P, K)) < 0.6) * rng.uniform(0.01, 2.0, (P, K))
-    m = [rng.uniform(-200, 200, (P, K)) for _ in range(3)]
-    c00 = rng.uniform(0.5, 5.0, (P, K))
-    c11 = rng.uniform(0.5, 5.0, (P, K))
-    c22 = rng.uniform(0.5, 5.0, (P, K))
-    c01 = 0.1 * rng.uniform(-1, 1, (P, K))
-    c02 = 0.1 * rng.uniform(-1, 1, (P, K))
-    c12 = 0.1 * rng.uniform(-1, 1, (P, K))
-    args = [jnp.asarray(a, jnp.float32)
-            for a in (w, *m, c00, c01, c02, c11, c12, c22)]
-
-    ref = greedy_merge_channels3(*args, 9.0, F, use_pallas=False)
-    got = greedy_merge3_pallas(*args, 9.0, F, interpret=True)
-    for i, (g, r) in enumerate(zip(got, ref)):
-        np.testing.assert_allclose(np.asarray(g), np.asarray(r),
-                                   rtol=2e-4, atol=2e-4, err_msg=str(i))
-
-
-def test_merge_pallas_pads_odd_particle_counts(rng):
-    """P not a multiple of the tile: the wrapper pads with zero-weight rows
-    and slices back — results must be unchanged."""
-    from phdslam_tpu.kernels.merge_pallas import greedy_merge_pallas
-    from phdslam_tpu.ops.gm import greedy_merge_channels
-
-    P, K, F = 200, 96, 48      # reference's shipped particle count
-    w = (rng.uniform(size=(P, K)) < 0.6) * rng.uniform(0.01, 2.0, (P, K))
-    mx = rng.uniform(-20, 20, (P, K))
-    my = rng.uniform(-20, 20, (P, K))
-    c00 = rng.uniform(0.05, 1.5, (P, K))
-    c11 = rng.uniform(0.05, 1.5, (P, K))
-    c01 = 0.2 * np.sqrt(c00 * c11)
-    args = [jnp.asarray(a, jnp.float32) for a in (w, mx, my, c00, c01, c11)]
-    ref = greedy_merge_channels(*args, 4.0, F, metric=0, use_pallas=False)
-    got = greedy_merge_pallas(*args, 4.0, F, interpret=True)
-    for g, r in zip(got, ref):
-        assert g.shape == (P, F)
-        np.testing.assert_allclose(np.asarray(g), np.asarray(r),
-                                   rtol=1e-5, atol=1e-6)
-
-
-def test_fused_select_pads_odd_particle_counts(tiny_cfg, rng):
+def test_select_vmapped_measurement_counts(tiny_cfg, rng):
+    """Under vmap (the Monte-Carlo batch) each run's valid-measurement
+    count is its own traced scalar: every run equals its unbatched call,
+    and columns past its count are zeros."""
     from phdslam_tpu.filter.update import kalman_preupdate
     from phdslam_tpu.kernels.preupdate_pallas import fused_update_select
 
-    cfg, gm, pose, z_rb, z_valid = _problem(tiny_cfg, rng, P=200)
-    pre, sum_ref, compat_ref, w_ref, *_ = _xla_selection(
-        cfg, gm, pose, z_rb, z_valid, 8)
-    out = fused_update_select(z_rb, pre, gm, cfg, k1=8, interpret=True)
-    sum_exp, w_sel = out[0], out[1]
-    assert sum_exp.shape == (200, z_rb.shape[0])
-    np.testing.assert_allclose(np.asarray(sum_exp), np.asarray(sum_ref),
-                               rtol=1e-4, atol=1e-6)
-    np.testing.assert_allclose(np.sort(np.asarray(w_sel), axis=-1),
-                               np.sort(np.asarray(w_ref), axis=-1),
-                               rtol=1e-4, atol=1e-7)
-
-
-def test_merge_pallas_hellinger_matches_xla(rng):
-    from phdslam_tpu.kernels.merge_pallas import greedy_merge_pallas
-    from phdslam_tpu.ops.gm import greedy_merge_channels
-
-    P, K, F = 128, 128, 48
-    w = (rng.uniform(size=(P, K)) < 0.6) * rng.uniform(0.01, 2.0, (P, K))
-    mx = rng.uniform(-20, 20, (P, K))
-    my = rng.uniform(-20, 20, (P, K))
-    c00 = rng.uniform(0.05, 1.5, (P, K))
-    c11 = rng.uniform(0.05, 1.5, (P, K))
-    c01 = 0.3 * np.sqrt(c00 * c11) * rng.uniform(-1, 1, (P, K))
-    args = [jnp.asarray(a, jnp.float32) for a in (w, mx, my, c00, c01, c11)]
-    ref = greedy_merge_channels(*args, 0.6, F, metric=1, use_pallas=False)
-    got = greedy_merge_pallas(*args, 0.6, F, metric=1, interpret=True)
-    for g, r in zip(got, ref):
-        np.testing.assert_allclose(np.asarray(g), np.asarray(r),
-                                   rtol=1e-5, atol=1e-6)
-
-
-@pytest.mark.parametrize("by_index", [False, True])
-def test_cphd_update_pallas_vs_xla_interpret(tiny_cfg, rng, monkeypatch,
-                                             by_index):
-    """cphd_update's kernel branch (raw-mode selection, interpret) must
-    match its XLA branch on the same inputs."""
-    from phdslam_tpu.filter import cphd as C
-
-    cfg, gm, pose, z_rb, z_valid = _problem(tiny_cfg, rng)
-    cfg = cfg.replace(filterType=1, maxCardinality=31,
-                      selectByIndex=by_index)
-    consts = C.make_constants(cfg)
-    ncard = cfg.maxCardinality + 1
-    cn = jnp.log(jnp.full((pose.shape[0], ncard), 1.0 / ncard))
-    z_label = jnp.zeros((z_rb.shape[0],), jnp.int32)
-
-    map_x, cn_x, dw_x = C.cphd_update(pose, gm, cn, z_rb, z_label,
-                                      z_valid, cfg, consts)
-
-    _patch_pallas_interpret(monkeypatch)
-    map_p, cn_p, dw_p = C.cphd_update(pose, gm, cn, z_rb, z_label,
-                                      z_valid, cfg, consts)
-
-    np.testing.assert_allclose(np.asarray(dw_p), np.asarray(dw_x),
-                               rtol=2e-4, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(cn_p), np.asarray(cn_x),
-                               rtol=1e-3, atol=2e-3)
-    np.testing.assert_allclose(
-        np.sort(np.asarray(map_p.w), axis=-1),
-        np.sort(np.asarray(map_x.w), axis=-1), rtol=1e-3, atol=1e-5)
-
-
-@pytest.mark.parametrize("by_index", [False, True])
-def test_mixed_update_pallas_vs_xla_interpret(tiny_cfg, rng, monkeypatch,
-                                              by_index):
-    """phd_update_mixed's static-half kernel branch (raw mode, interpret)
-    vs the pure-XLA branch."""
-    from phdslam_tpu.filter.state import Gaussian4DMixture
-    from phdslam_tpu.filter.update4 import phd_update_mixed
-
-    cfg, gm2, pose, z_rb, z_valid = _problem(tiny_cfg, rng)
-    cfg = cfg.replace(featureModel=2, maxFeatures=gm2.w.shape[1],
-                      selectByIndex=by_index)
-    P, F = gm2.w.shape
-    F4 = F // 2
-    gm4 = Gaussian4DMixture.empty((P,), F4)
-    # populate the dynamic map so the 4-D selection path does real work
-    w4 = (rng.uniform(size=(P, F4)) < 0.3) * rng.uniform(
-        0.1, 1.0, (P, F4))
-    mean4 = np.zeros((P, 4, F4), np.float32)
-    mean4[:, 0] = rng.uniform(-8, 8, (P, F4))
-    mean4[:, 1] = rng.uniform(-8, 8, (P, F4))
-    mean4[:, 2:] = rng.uniform(-0.5, 0.5, (P, 2, F4))
-    cov4 = np.asarray(gm4.cov_channels) * 0.3
-    gm4 = Gaussian4DMixture(w=jnp.asarray(w4, jnp.float32),
-                            mean_channels=jnp.asarray(mean4),
-                            cov_channels=jnp.asarray(cov4))
-    z_label = jnp.zeros((z_rb.shape[0],), jnp.int32)
-
-    g2x, g4x, dwx = phd_update_mixed(pose, gm2, gm4, z_rb, z_label,
-                                     z_valid, cfg)
-
-    _patch_pallas_interpret(monkeypatch)
-    g2p, g4p, dwp = phd_update_mixed(pose, gm2, gm4, z_rb, z_label,
-                                     z_valid, cfg)
-
-    np.testing.assert_allclose(np.asarray(dwp), np.asarray(dwx),
-                               rtol=2e-4, atol=1e-4)
-    np.testing.assert_allclose(
-        np.sort(np.asarray(g2p.w), axis=-1),
-        np.sort(np.asarray(g2x.w), axis=-1), rtol=1e-3, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(g4p.w), np.asarray(g4x.w),
-                               rtol=1e-3, atol=1e-5)
-
-
-def test_merge_pallas_odd_cap_block_fallback(rng):
-    """max_out values not divisible by the pick block must fall back to
-    smaller blocks (down to 1) and still match the XLA path exactly."""
-    from phdslam_tpu.kernels.merge_pallas import greedy_merge_pallas
-    from phdslam_tpu.ops.gm import greedy_merge_channels
-
-    P, K = 128, 96
-    w = (rng.uniform(size=(P, K)) < 0.6) * rng.uniform(0.01, 2.0, (P, K))
-    mx = rng.uniform(-20, 20, (P, K))
-    my = rng.uniform(-20, 20, (P, K))
-    c00 = rng.uniform(0.05, 1.5, (P, K))
-    c11 = rng.uniform(0.05, 1.5, (P, K))
-    c01 = 0.4 * np.sqrt(c00 * c11) * rng.uniform(-1, 1, (P, K))
-    args = [jnp.asarray(a, jnp.float32) for a in (w, mx, my, c00, c01, c11)]
-
-    for cap in (7, 10, 33):          # block falls to 1, 2, 1
-        ref = greedy_merge_channels(*args, 4.0, cap, metric=0)
-        got = greedy_merge_pallas(*args, 4.0, cap, interpret=True)
-        for name, g, r in zip(("w", "mx", "my", "c00", "c01", "c11"),
-                              got, ref):
-            np.testing.assert_allclose(np.asarray(g), np.asarray(r),
-                                       rtol=1e-5, atol=1e-6,
-                                       err_msg=f"cap={cap} {name}")
-
-
-def test_esf_all_pallas_matches_xla(rng):
-    """ESF kernel parity (interpret mode): full + per-measurement-deleted
-    log-ESFs match filter/cphd.py::esf_log/esf_deleted exactly on finite
-    entries; empty coefficients come back as the -1e30 sentinel (-inf in
-    the XLA forms) — identical after exp."""
-    from phdslam_tpu.filter.cphd import esf_deleted, esf_log
-    from phdslam_tpu.kernels.esf_pallas import esf_all_pallas
-
-    P, M = 40, 12
-    ll = rng.normal(-2, 1.5, (P, M)).astype(np.float32)
-    ll[:, 9:] = -np.inf          # padded measurement slots
-    llj = jnp.asarray(ll)
-    esf_x = np.asarray(esf_log(llj))
-    esfd_x = np.asarray(esf_deleted(llj))
-    esf_p, esfd_p = esf_all_pallas(llj, tile_p=16, interpret=True)
-    esf_p, esfd_p = np.asarray(esf_p), np.asarray(esfd_p)
-    fin = np.isfinite(esf_x)
-    assert np.abs(esf_p[fin] - esf_x[fin]).max() < 1e-5
-    assert (esf_p[~fin] < -1e29).all()
-    find = np.isfinite(esfd_x)
-    assert np.abs(esfd_p[find] - esfd_x[find]).max() < 1e-5
-    assert (esfd_p[~find] < -1e29).all()
+    cfg, gm, pose, z_rb, _ = _problem(tiny_cfg, rng, P=5)
+    pre = kalman_preupdate(pose, gm, cfg)
+    zs = jnp.stack([z_rb, z_rb[::-1]])
+    nvs = jnp.asarray([3, 6], jnp.int32)
+    run = lambda z, n: fused_update_select(z, pre, gm, cfg, k1=4,
+                                           n_valid=n, interpret=True)
+    batched = jax.jit(jax.vmap(run))(zs, nvs)
+    for b in range(2):
+        one = run(zs[b], nvs[b])
+        for a, o in zip(batched, one):
+            np.testing.assert_array_equal(np.asarray(a[b]), np.asarray(o))
+    sum_exp = np.asarray(batched[0])
+    assert not sum_exp[0, :, 3:].any() and sum_exp[1, :, 3:].any()
 
 
 def test_select_dead_output_elision(tiny_cfg, rng):
     """with_compat/with_lpw=False skip the unused reductions: every live
     output is bit-identical, the skipped ones return their zero-fill."""
+    from phdslam_tpu.filter.update import kalman_preupdate
     from phdslam_tpu.kernels.preupdate_pallas import fused_update_select
 
-    from phdslam_tpu.filter.update import kalman_preupdate
-
-    cfg, gm, pose, z_rb, z_valid = _problem(tiny_cfg, rng)
+    cfg, gm, pose, z_rb, _ = _problem(tiny_cfg, rng)
     pre = kalman_preupdate(pose, gm, cfg)
-    full = fused_update_select(z_rb, pre, gm, cfg, k1=4,
-                               interpret=True,
+    full = fused_update_select(z_rb, pre, gm, cfg, k1=4, interpret=True,
                                with_compat=True, with_lpw=True)
-    skim = fused_update_select(z_rb, pre, gm, cfg, k1=4,
-                               interpret=True,
+    skim = fused_update_select(z_rb, pre, gm, cfg, k1=4, interpret=True,
                                with_compat=False, with_lpw=False)
     for i in range(7):      # sum_exp + 6 payload channels (w..u11)
         np.testing.assert_array_equal(np.asarray(full[i]),
                                       np.asarray(skim[i]))
+    assert np.asarray(full[8]).any()
     assert not np.asarray(skim[8]).any()        # compat zero-filled
     assert not np.asarray(skim[7]).any()        # lpw_sel zero-filled
+    live = np.asarray(full[1]) > 0
+    np.testing.assert_array_equal(np.asarray(full[7])[live] < -1e29, False)
 
 
-def test_merge_pallas_sort_rows_exact_permutation(rng):
-    """sort_rows groups similar-workload particles per tile and must be a
-    pure row permutation: outputs identical to the unsorted kernel (rows
-    are independent), including with heterogeneous candidate counts that
-    make the sort actually reorder."""
+# ----------------------------------------------------------------- merge
+
+
+@pytest.mark.parametrize("metric", [0, 1])
+def test_merge_interpret_matches_xla(metric):
+    """Odd P and K (K padded 40 -> 64); the cap of 12 slots is reached."""
+    chip_smoke.check_merge(7, 40, 12, metric, interpret=True)
+
+
+@pytest.mark.parametrize("cap", [7, 33, 64])
+def test_merge_interpret_caps(cap):
+    """Caps below, near and above the live candidate count: the exhausted
+    slots are the empty convention (weight 0, identity covariance)."""
     from phdslam_tpu.kernels.merge_pallas import greedy_merge_pallas
+    from phdslam_tpu.ops.gm import greedy_merge_channels
 
-    P, K, F = 256, 96, 48
-    # wildly varying candidate counts per row
-    counts = rng.integers(1, K, size=(P,))
-    w = rng.uniform(0.01, 2.0, (P, K))
-    w = w * (np.arange(K)[None, :] < counts[:, None])
-    mx = rng.uniform(-20, 20, (P, K))
-    my = rng.uniform(-20, 20, (P, K))
-    c00 = rng.uniform(0.05, 1.5, (P, K))
-    c11 = rng.uniform(0.05, 1.5, (P, K))
-    c01 = 0.4 * np.sqrt(c00 * c11) * rng.uniform(-1, 1, (P, K))
-    args = [jnp.asarray(a, jnp.float32) for a in (w, mx, my, c00, c01, c11)]
+    args = chip_smoke.merge_problem(5, 48, seed=3)
+    ref = greedy_merge_channels(*args, 4.0, cap)
+    got = greedy_merge_pallas(*args, 4.0, cap, interpret=True)
+    chip_smoke.compare_merge(got, ref)
+    w, c00, c01, c11 = (np.asarray(got[i]) for i in (0, 3, 4, 5))
+    empty = w == 0
+    assert (c00[empty] == 1).all() and (c11[empty] == 1).all()
+    assert (c01[empty] == 0).all()
+    if cap == 64:
+        assert empty.any()
 
-    base = greedy_merge_pallas(*args, 4.0, F, interpret=True)
-    srt = greedy_merge_pallas(*args, 4.0, F, interpret=True,
-                              sort_rows=True)
-    for name, g, r in zip(("w", "mx", "my", "c00", "c01", "c11"), srt,
-                          base):
-        np.testing.assert_array_equal(np.asarray(g), np.asarray(r),
-                                      err_msg=name)
+
+def test_merge_vmapped_matches_xla():
+    """Under vmap (the Monte-Carlo batch) the merge kernel gains a batch
+    grid axis; every run equals the XLA merge of that run."""
+    from phdslam_tpu.kernels.merge_pallas import greedy_merge_pallas
+    from phdslam_tpu.ops.gm import greedy_merge_channels
+
+    runs = [chip_smoke.merge_problem(5, 40, seed=s) for s in (1, 2)]
+    stacked = [jnp.stack(a) for a in zip(*runs)]
+    got = jax.jit(jax.vmap(lambda *a: greedy_merge_pallas(
+        *a, 4.0, 12, interpret=True)))(*stacked)
+    for b, args in enumerate(runs):
+        chip_smoke.compare_merge([g[b] for g in got],
+                                 greedy_merge_channels(*args, 4.0, 12))
+
+
+# ------------------------------------------------- updates through kernels
+
+
+def _compare_updates(res_k, res_x):
+    np.testing.assert_allclose(np.asarray(res_k.log_weight_delta),
+                               np.asarray(res_x.log_weight_delta),
+                               rtol=2e-4, atol=1e-5)
+    np.testing.assert_allclose(
+        np.sort(np.asarray(res_k.map_out.w), axis=-1),
+        np.sort(np.asarray(res_x.map_out.w), axis=-1),
+        rtol=1e-3, atol=1e-6)
+
+
+@pytest.mark.parametrize("n_valid", [3, 6])
+def test_full_update_kernels_match_xla(tiny_cfg, rng, n_valid):
+    """phd_update_static with the kernels (cfg.pallasInterpret, chosen by
+    kernels.kernel_mode) against its XLA branch; with 3 of 6 measurement
+    slots valid the kernel's measurement loop stops at the count."""
+    import phdslam_tpu.filter.update as U
+
+    cfg, gm, pose, z_rb, _ = _problem(tiny_cfg, rng)
+    M = z_rb.shape[0]
+    z_valid = jnp.asarray(np.arange(M) < n_valid)
+    z_label = jnp.zeros((M,), jnp.int32)
+    res_x = U.phd_update_static(pose, gm, z_rb, z_label, z_valid,
+                                cfg.replace(usePallas=False))
+    res_k = U.phd_update_static(pose, gm, z_rb, z_label, z_valid,
+                                cfg.replace(pallasInterpret=True))
+    _compare_updates(res_k, res_x)
+    np.testing.assert_array_equal(np.asarray(res_k.det_mass)[:, n_valid:],
+                                  0.0)
+
+
+def test_cphd_update_kernels_match_xla(tiny_cfg, rng):
+    """cphd_update's kernel branch (raw-mode select) against its XLA
+    branch."""
+    from phdslam_tpu.filter import cphd as C
+
+    cfg, gm, pose, z_rb, z_valid = _problem(tiny_cfg, rng)
+    cfg = cfg.replace(filterType=1, maxCardinality=31)
+    consts = C.make_constants(cfg)
+    ncard = cfg.maxCardinality + 1
+    cn = jnp.log(jnp.full((pose.shape[0], ncard), 1.0 / ncard))
+    z_label = jnp.zeros((z_rb.shape[0],), jnp.int32)
+    map_x, cn_x, dw_x = C.cphd_update(pose, gm, cn, z_rb, z_label, z_valid,
+                                      cfg.replace(usePallas=False), consts)
+    map_k, cn_k, dw_k = C.cphd_update(pose, gm, cn, z_rb, z_label, z_valid,
+                                      cfg.replace(pallasInterpret=True),
+                                      consts)
+    np.testing.assert_allclose(np.asarray(dw_k), np.asarray(dw_x),
+                               rtol=2e-4, atol=1e-4)
+    np.testing.assert_allclose(np.asarray(cn_k), np.asarray(cn_x),
+                               rtol=1e-3, atol=2e-3)
+    np.testing.assert_allclose(np.sort(np.asarray(map_k.w), axis=-1),
+                               np.sort(np.asarray(map_x.w), axis=-1),
+                               rtol=1e-3, atol=1e-5)
+
+
+def test_mixed_update_kernels_match_xla(tiny_cfg, rng):
+    """phd_update_mixed: the static half's kernel branch against the XLA
+    branch (the dynamic half is XLA either way)."""
+    from phdslam_tpu.filter.state import Gaussian4DMixture
+    from phdslam_tpu.filter.update4 import phd_update_mixed
+
+    cfg, gm2, pose, z_rb, z_valid = _problem(tiny_cfg, rng)
+    cfg = cfg.replace(featureModel=2)
+    P, F = gm2.w.shape
+    F4 = F // 2
+    w4 = (rng.uniform(size=(P, F4)) < 0.3) * rng.uniform(0.1, 1.0, (P, F4))
+    mean4 = np.zeros((P, 4, F4), np.float32)
+    mean4[:, :2] = rng.uniform(-8, 8, (P, 2, F4))
+    mean4[:, 2:] = rng.uniform(-0.5, 0.5, (P, 2, F4))
+    gm4 = Gaussian4DMixture(
+        w=jnp.asarray(w4, jnp.float32), mean_channels=jnp.asarray(mean4),
+        cov_channels=Gaussian4DMixture.empty((P,), F4).cov_channels * 0.3)
+    z_label = jnp.zeros((z_rb.shape[0],), jnp.int32)
+    g2x, g4x, dwx = phd_update_mixed(pose, gm2, gm4, z_rb, z_label, z_valid,
+                                     cfg.replace(usePallas=False))
+    g2k, g4k, dwk = phd_update_mixed(pose, gm2, gm4, z_rb, z_label, z_valid,
+                                     cfg.replace(pallasInterpret=True))
+    np.testing.assert_allclose(np.asarray(dwk), np.asarray(dwx),
+                               rtol=2e-4, atol=1e-4)
+    np.testing.assert_allclose(np.sort(np.asarray(g2k.w), axis=-1),
+                               np.sort(np.asarray(g2x.w), axis=-1),
+                               rtol=1e-3, atol=1e-5)
+    np.testing.assert_allclose(np.asarray(g4k.w), np.asarray(g4x.w),
+                               rtol=1e-3, atol=1e-5)
+
+
+# -------------------------------------------------------------- dispatch
+
+
+@pytest.mark.parametrize("platform,use,interpret,expect", [
+    ("gpu", True, False, (True, False)),
+    ("gpu", False, False, (False, False)),
+    ("cpu", True, False, (False, False)),
+    ("cpu", True, True, (True, True)),
+    ("cpu", False, True, (False, False)),
+])
+def test_kernel_mode(tiny_cfg, platform, use, interpret, expect):
+    from phdslam_tpu.kernels import kernel_mode
+
+    cfg = tiny_cfg.replace(usePallas=use, pallasInterpret=interpret)
+    assert kernel_mode(cfg, platform) == expect
+
+
+def test_kernel_mode_refuses_interpret_on_gpu(tiny_cfg):
+    from phdslam_tpu.kernels import kernel_mode
+
+    with pytest.raises(ValueError, match="interpret"):
+        kernel_mode(tiny_cfg.replace(pallasInterpret=True), "gpu")
+
+
+def test_kernel_mode_defaults_to_the_process_backend(tiny_cfg):
+    from phdslam_tpu.kernels import kernel_mode
+
+    assert jax.default_backend() == "cpu"
+    assert kernel_mode(tiny_cfg) == (False, False)
+
+
+def test_kernel_mode_reads_the_cfg_platform(tiny_cfg):
+    """cfg.kernelPlatform (a mesh's platform) wins over the process
+    default backend; an explicit platform wins over both."""
+    from phdslam_tpu.kernels import kernel_mode
+
+    cfg = tiny_cfg.replace(kernelPlatform="gpu")
+    assert kernel_mode(cfg) == (True, False)
+    assert kernel_mode(cfg, "cpu") == (False, False)
+    with pytest.raises(ValueError, match="interpret"):
+        kernel_mode(cfg.replace(pallasInterpret=True))
+
+
+def test_resolve_pallas_follows_the_mesh(tiny_cfg):
+    from phdslam_tpu.parallel.mesh import make_mesh, resolve_pallas
+
+    mesh = make_mesh(2)
+    cfg, pmesh = resolve_pallas(tiny_cfg, mesh)
+    assert pmesh is None and not cfg.usePallas
+    cfg, pmesh = resolve_pallas(tiny_cfg.replace(pallasInterpret=True), mesh)
+    assert pmesh is mesh and cfg.usePallas and cfg.kernelPlatform == "cpu"
+
+
+def test_make_mesh_raises_without_enough_devices():
+    from phdslam_tpu.parallel.mesh import make_mesh
+
+    with pytest.raises(RuntimeError, match="devices"):
+        make_mesh(len(jax.devices()) + 1)
+
+
+# ----------------------------------------------------------------- cache
+
+
+def test_compile_cache_honours_the_env_var(monkeypatch, tmp_path):
+    from phdslam_tpu import utils
+
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    before = jax.config.jax_compilation_cache_dir
+    assert utils.configure_compile_cache() == str(tmp_path)
+    # JAX reads the variable itself; nothing else is set in code
+    assert jax.config.jax_compilation_cache_dir == before
+
+
+def test_compile_cache_defaults_inside_the_checkout(monkeypatch):
+    import os
+
+    from phdslam_tpu import utils
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    assert utils.compile_cache_dir() == os.path.join(utils.REPO_ROOT,
+                                                     ".jax_cache")
+
+
+# ------------------------------------------------------------------- gpu
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("raw", [False, True])
+def test_select_compiled_matches_reference(gpu, raw):
+    chip_smoke.check_select(300, 96, 16, 8, raw, n_valid=11)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", [0, 1])
+def test_merge_compiled_matches_xla(gpu, metric):
+    chip_smoke.check_merge(300, 200, 64, metric)
+
+
+@pytest.mark.gpu
+def test_full_update_compiled_matches_xla(gpu, tiny_cfg, rng):
+    import phdslam_tpu.filter.update as U
+
+    cfg, gm, pose, z_rb, z_valid = _problem(tiny_cfg, rng, P=64, F=48, M=8)
+    z_label = jnp.zeros((z_rb.shape[0],), jnp.int32)
+    res_x = U.phd_update_static(pose, gm, z_rb, z_label, z_valid,
+                                cfg.replace(usePallas=False))
+    res_k = U.phd_update_static(pose, gm, z_rb, z_label, z_valid, cfg)
+    _compare_updates(res_k, res_x)
